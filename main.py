@@ -26,13 +26,15 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="mlio_tpu inference optimizer")
     p.add_argument("--model", default="gpt2",
                    help="preset name or local HF checkpoint dir")
-    p.add_argument("--config", default=None, help="YAML config file")
+    p.add_argument("--config", default=None, help="JSON config file")
     p.add_argument("--dtype", default="bf16", choices=["fp32", "bf16"])
     p.add_argument("--quantize", default="none",
                    choices=["none", "int8", "int4", "fp8"])
     p.add_argument("--kv-quant", default="none", choices=["none", "int8"])
-    p.add_argument("--kernels", default="fused", choices=["dense", "fused"],
-                   help="dense jnp path vs fused Pallas kernels")
+    p.add_argument("--attention", default="dense",
+                   choices=["dense", "flash"],
+                   help="dense: XLA on any backend; flash: cuDNN prefill "
+                        "and the Pallas-Triton paged decode kernel (GPU)")
     p.add_argument("--tensor-parallel", type=int, default=1)
     p.add_argument("--data-parallel", type=int, default=1)
     p.add_argument("--auto-parallel", action="store_true",
@@ -78,8 +80,8 @@ def init_components(args):
     if args.quantize != "none":
         params = quantize_params(params, spec, args.quantize)
 
-    impl = (Impl(attention="flash", mlp="fused", norm="fused")
-            if args.kernels == "fused" else Impl())
+    impl = Impl(attention=args.attention)
+    config.kernels.attention = args.attention
 
     orch = setup_parallel(args, config, spec)
     if orch is not None:
@@ -136,7 +138,7 @@ def run_optimizer(args, config, spec, params, impl, orch=None) -> dict:
 
     out_dir = Path(args.output_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
-    save_config(config, out_dir / "used_config.yaml")
+    save_config(config, out_dir / "used_config.json")
     results = {}
 
     if args.summary:
@@ -191,7 +193,10 @@ def run_optimizer(args, config, spec, params, impl, orch=None) -> dict:
             warmup_iters=config.benchmark.warmup_iters,
             iters=config.benchmark.iters,
             output_dir=str(out_dir))
-        runner = BenchmarkRunner(cfg)
+        variants = {"baseline": _Impl()}
+        if impl != _Impl():
+            variants[args.attention] = impl
+        runner = BenchmarkRunner(cfg, variants=variants)
         runner.run_model_sweep(spec, params)
         path = runner.save_results()
         rep = BenchmarkReport(runner.results, name=f"{spec.name}")
@@ -245,6 +250,9 @@ def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(message)s")
     args = build_parser().parse_args(argv)
+    from mlio_tpu.utils.device_utils import enable_compile_cache
+
+    enable_compile_cache()
     config, spec, params, impl, orch = init_components(args)
     run_optimizer(args, config, spec, params, impl, orch)
     return 0

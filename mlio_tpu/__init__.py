@@ -1,11 +1,11 @@
-"""mlio_tpu — TPU-native inference optimization framework.
+"""mlio_tpu — inference optimization framework for NVIDIA Hopper GPUs.
 
 A ground-up JAX/XLA/Pallas re-design of the capability surface of the
 reference GPU framework ``aslitaser/ml-inference-optimizer`` (see SURVEY.md):
-functional transformer runtime (GPT-2 / Llama families), Pallas kernels for
-flash/ring/paged attention, fused MLP and norms, INT8 weight-only and KV-cache
-quantization, mesh-based tensor/sequence parallelism over ICI, profiling,
-benchmarking and reporting.
+functional transformer runtime (GPT-2 / Llama families), cuDNN fused
+attention, a Pallas-Triton paged decode kernel, ring attention, INT8
+weight-only and KV-cache quantization, mesh-based tensor/sequence
+parallelism, profiling, benchmarking and reporting.
 
 Unlike the reference (which monkeypatches PyTorch modules at runtime,
 cf. /root/reference/baseline/inference.py:283, model_utils.py:600), every

@@ -3,8 +3,9 @@
 Rebuild of /root/reference/benchmarks/metrics.py:15-320 — throughput,
 latency percentiles, memory efficiency, FLOPs utilization, speedup, memory
 reduction, scaling efficiency, communication overhead, error metrics,
-numerical stability, determinism — TPU-flavored (tokens/s/chip and roofline
-fraction are first-class).
+numerical stability, determinism — tokens/s per device and roofline
+fraction against the device's published peaks (mlio_tpu.utils.peaks) are
+first-class.
 """
 from __future__ import annotations
 
@@ -14,8 +15,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-V5E_PEAK_BF16 = 197e12
-V5E_HBM_GBPS = 819.0
+from mlio_tpu.utils.peaks import device_peaks
 
 
 def throughput_tokens_per_sec(num_tokens: int, elapsed_s: float,
@@ -49,14 +49,17 @@ def memory_efficiency(model_bytes: int, total_bytes: int) -> float:
 
 
 def flops_utilization(flops: float, elapsed_s: float,
-                      peak_flops: float = V5E_PEAK_BF16) -> float:
-    """MFU (parity: metrics.py:140-170)."""
-    return flops / elapsed_s / peak_flops if elapsed_s > 0 else 0.0
+                      kind: Optional[str] = None) -> float:
+    """MFU against device ``kind``'s bf16 peak (parity: metrics.py:140-170)."""
+    peak = device_peaks(kind).bf16_flops
+    return flops / elapsed_s / peak if elapsed_s > 0 else 0.0
 
 
 def bandwidth_utilization(bytes_accessed: float, elapsed_s: float,
-                          hbm_gbps: float = V5E_HBM_GBPS) -> float:
-    return bytes_accessed / elapsed_s / (hbm_gbps * 1e9) if elapsed_s else 0.0
+                          kind: Optional[str] = None) -> float:
+    """Achieved over device ``kind``'s published memory bandwidth."""
+    peak = device_peaks(kind).hbm_bytes_per_s
+    return bytes_accessed / elapsed_s / peak if elapsed_s else 0.0
 
 
 def speedup(baseline_s: float, optimized_s: float) -> float:

@@ -4,7 +4,7 @@ Rebuild of /root/reference/benchmarks/runners.py (BenchmarkConfig :28,
 BenchmarkRunner :53-330, Throughput :333 / Latency :363 / Memory :408 /
 Scaling :450 subclasses): warmup, timed loops with hard syncs, per-variant
 output validation against the baseline variant (allclose rtol/atol 1e-3,
-runners.py:250-297), JSON persistence. TPU specifics: every timed region is
+runners.py:250-297), JSON persistence. Here every timed region is
 a jitted callable, the sync is a device fetch, and scaling runs over a real
 device mesh instead of multi-process NCCL.
 """
@@ -44,8 +44,6 @@ DEFAULT_VARIANTS: Dict[str, Impl] = {
     # (parity: the 7-config A/B harness, baseline/inference.py:1682-1776)
     "baseline": Impl(),
     "flash_attention": Impl(attention="flash"),
-    "fused_mlp": Impl(mlp="fused"),
-    "flash+fused": Impl(attention="flash", mlp="fused", norm="fused"),
 }
 
 

@@ -1,38 +1,37 @@
-"""YAML config load / save / merge / hardware-aware auto-defaults.
+"""JSON config load / save / merge / hardware-aware auto-defaults.
 
 Capability parity with /root/reference/config/config_loader.py:12-134.
-The auto-optimization heuristics are re-derived for TPU meshes: TP rides the
-ICI ring within a host (up to 8 chips on v5e), sequence parallelism turns on
-for long contexts, bf16 is the default compute dtype (native MXU format).
+The auto-optimization heuristics: TP spans the cards of one host (joined all
+to all by NVLink), sequence parallelism turns on for long contexts, bf16 is
+the default compute dtype.
 """
 from __future__ import annotations
 
 import copy
+import json
 from pathlib import Path
 from typing import Any, Dict, Optional, Union
-
-import yaml
 
 from mlio_tpu.config.schema import OptimizerConfig
 
 
 def load_config(path: Union[str, Path, None] = None) -> OptimizerConfig:
-    """Load a YAML config file into a validated :class:`OptimizerConfig`.
+    """Load a JSON config file into a validated :class:`OptimizerConfig`.
 
     Reference parity: config_loader.py:12-43. A ``None`` path returns the
     defaults.
     """
     if path is None:
         return OptimizerConfig()
-    raw = yaml.safe_load(Path(path).read_text()) or {}
-    return OptimizerConfig.model_validate(raw)
+    raw = json.loads(Path(path).read_text() or "{}")
+    return OptimizerConfig.from_dict(raw)
 
 
 def save_config(config: OptimizerConfig, path: Union[str, Path]) -> None:
     """Persist the effective config (reference: config_loader.py:45-62)."""
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
-    path.write_text(yaml.safe_dump(config.model_dump(), sort_keys=False))
+    path.write_text(json.dumps(config.to_dict(), indent=2) + "\n")
 
 
 def merge_configs(base: Dict[str, Any], override: Dict[str, Any]) -> Dict[str, Any]:
@@ -54,11 +53,11 @@ def get_optimized_config(
 ) -> OptimizerConfig:
     """Hardware-aware auto defaults (reference: config_loader.py:91-134).
 
-    TPU-flavored heuristics:
-      * TP = min(num_chips, 8) — keep the TP group inside one host's ICI.
+    Heuristics:
+      * TP = min(num_chips, 8) — keep the TP group inside one host.
       * Remaining chips become data parallel.
       * Sequence parallelism (ring attention) for contexts >= 16K.
-      * bf16 compute everywhere (MXU-native); fused Pallas kernels on.
+      * bf16 compute everywhere.
     """
     import jax
 
@@ -90,6 +89,4 @@ def get_optimized_config(
 
     cfg.model.dtype = "bf16"
     cfg.kernels.precision = "bf16"
-    cfg.kernels.attention = "flash"
-    cfg.kernels.mlp = "fused"
-    return cfg
+    return cfg.validate()

@@ -1,70 +1,103 @@
-"""Unified configuration schema.
+"""Unified configuration schema (stdlib dataclasses).
 
 Capability parity with the reference's pydantic tree
 (/root/reference/config/config_schema.py:5-83) plus the per-subsystem
 dataclass configs scattered through the reference
 (FlashAttentionConfig, RingAttentionConfig, TensorParallelConfig,
 SequenceParallelConfig, ParallelConfig, BenchmarkConfig, ProfilerConfig) —
-unified here into one validated tree, TPU-flavored: device meshes instead of
-GPU counts, Pallas kernel choices instead of Triton flags, ICI/DCN axes
-instead of NCCL knobs.
+unified here into one validated tree: device meshes instead of GPU counts
+and process groups, ``Impl`` kernel choices instead of Triton flags.
+
+Every section validates its fields when it is built; :meth:`from_dict`
+builds the tree from plain JSON data and rejects unknown keys.
 """
 from __future__ import annotations
 
-from typing import List, Optional
+import dataclasses
+from typing import Any, Dict, List, Optional
 
-from pydantic import BaseModel, Field, model_validator
+
+def _at_least(obj, minimum, *names):
+    for name in names:
+        if getattr(obj, name) < minimum:
+            raise ValueError(f"{type(obj).__name__}.{name} must be >= "
+                             f"{minimum}, got {getattr(obj, name)}")
 
 
-class HardwareConfig(BaseModel):
+def _one_of(obj, name, choices):
+    if getattr(obj, name) not in choices:
+        raise ValueError(f"{type(obj).__name__}.{name} must be one of "
+                         f"{choices}, got {getattr(obj, name)!r}")
+
+
+@dataclasses.dataclass
+class HardwareConfig:
     """Target hardware description (reference: config_schema.py:5-12)."""
 
-    platform: str = "tpu"  # "tpu" | "cpu" (cpu = virtual-device testing)
-    num_chips: int = Field(1, ge=1)
-    num_hosts: int = Field(1, ge=1)
-    chip_type: str = "v5e"  # informational; used by the cost model
-    hbm_gb_per_chip: float = 16.0
-    memory_fraction: float = Field(0.9, gt=0.0, le=1.0)
+    platform: str = "gpu"  # "gpu" | "cpu" (cpu = virtual-device testing)
+    num_chips: int = 1
+    num_hosts: int = 1
+    chip_type: str = "NVIDIA H100 80GB HBM3"  # device kind, see utils.peaks
+    hbm_gb_per_chip: float = 80.0
+    memory_fraction: float = 0.9
+
+    def __post_init__(self):
+        _one_of(self, "platform", ("gpu", "cpu"))
+        _at_least(self, 1, "num_chips", "num_hosts")
+        if not 0.0 < self.memory_fraction <= 1.0:
+            raise ValueError("HardwareConfig.memory_fraction must be in "
+                             f"(0, 1], got {self.memory_fraction}")
 
 
-class KernelConfig(BaseModel):
-    """Which compute-path implementation to use per op
+@dataclasses.dataclass
+class KernelConfig:
+    """Which compute-path implementation to use
     (reference: config_schema.py:13-21 + FlashAttentionConfig
-    flash_attention.py:53-104)."""
+    flash_attention.py:53-104); ``attention`` maps onto ``Impl``."""
 
-    attention: str = "flash"  # "dense" | "flash" | "ring" | "paged"
-    mlp: str = "fused"  # "dense" | "fused"
-    norm: str = "fused"  # "dense" | "fused"
-    fused_ln_qkv: bool = False
-    use_pallas: bool = True  # False = pure-jnp reference path everywhere
-    block_q: int = 128
-    block_kv: int = 128
+    attention: str = "dense"  # "dense" | "flash" | "ring"
     causal: bool = True
     precision: str = "bf16"  # "fp32" | "bf16" | "fp16"
 
+    def __post_init__(self):
+        _one_of(self, "attention", ("dense", "flash", "ring"))
+        _one_of(self, "precision", ("fp32", "bf16", "fp16"))
 
-class QuantizationConfig(BaseModel):
+
+@dataclasses.dataclass
+class QuantizationConfig:
     """Weight / KV-cache quantization (reference: int8/int4 paths,
     baseline/inference.py:467-557)."""
 
     weights: str = "none"  # "none" | "int8" | "int4" | "fp8"
-    kv_cache: str = "none"  # "none" | "int8" | "fp8"
+    kv_cache: str = "none"  # "none" | "int8"
     activation: str = "none"  # "none" | "int8"
     per_channel: bool = True
     calibration_samples: int = 16
 
+    def __post_init__(self):
+        _one_of(self, "weights", ("none", "int8", "int4", "fp8"))
+        _one_of(self, "kv_cache", ("none", "int8"))
+        _one_of(self, "activation", ("none", "int8"))
 
-class ParallelismConfig(BaseModel):
-    """4D mesh layout (reference: ParallelConfig orchestrator.py:20-120)."""
 
-    tensor_parallel_size: int = Field(1, ge=1)
-    sequence_parallel_size: int = Field(1, ge=1)
-    pipeline_parallel_size: int = Field(1, ge=1)
-    data_parallel_size: int = Field(1, ge=1)
-    expert_parallel_size: int = Field(1, ge=1)
+@dataclasses.dataclass
+class ParallelismConfig:
+    """Mesh layout (reference: ParallelConfig orchestrator.py:20-120)."""
+
+    tensor_parallel_size: int = 1
+    sequence_parallel_size: int = 1
+    pipeline_parallel_size: int = 1
+    data_parallel_size: int = 1
+    expert_parallel_size: int = 1
     sequence_strategy: str = "ring"  # "local" | "ring" | "full" | "ulysses"
     communication_dtype: str = "bf16"
     auto: bool = False  # run the auto-config search instead
+
+    def __post_init__(self):
+        _at_least(self, 1, "tensor_parallel_size", "sequence_parallel_size",
+                  "pipeline_parallel_size", "data_parallel_size",
+                  "expert_parallel_size")
 
     @property
     def world_size(self) -> int:
@@ -76,7 +109,8 @@ class ParallelismConfig(BaseModel):
         )
 
 
-class ModelConfig(BaseModel):
+@dataclasses.dataclass
+class ModelConfig:
     """Which model to run (reference: config_schema.py:32-43)."""
 
     name: str = "gpt2"
@@ -88,11 +122,13 @@ class ModelConfig(BaseModel):
     kv_block_size: int = 16
 
 
-class BenchmarkConfig(BaseModel):
+@dataclasses.dataclass
+class BenchmarkConfig:
     """(reference: config_schema.py:44-54 + benchmarks/runners.py:28-50)."""
 
-    batch_sizes: List[int] = Field(default_factory=lambda: [1, 8])
-    seq_lens: List[int] = Field(default_factory=lambda: [128, 1024])
+    batch_sizes: List[int] = dataclasses.field(default_factory=lambda: [1, 8])
+    seq_lens: List[int] = dataclasses.field(
+        default_factory=lambda: [128, 1024])
     warmup_iters: int = 3
     iters: int = 10
     validate_outputs: bool = True
@@ -101,7 +137,8 @@ class BenchmarkConfig(BaseModel):
     output_dir: str = "benchmark_results"
 
 
-class ProfilingConfig(BaseModel):
+@dataclasses.dataclass
+class ProfilingConfig:
     """(reference: config_schema.py:55-64 + ProfilerConfig
     torch_profiler.py:18-52)."""
 
@@ -112,7 +149,8 @@ class ProfilingConfig(BaseModel):
     num_steps: int = 5
 
 
-class DashboardConfig(BaseModel):
+@dataclasses.dataclass
+class DashboardConfig:
     """(reference: config_schema.py:65-72)."""
 
     enabled: bool = False
@@ -121,20 +159,41 @@ class DashboardConfig(BaseModel):
     results_dir: str = "benchmark_results"
 
 
-class OptimizerConfig(BaseModel):
+_SECTIONS = {
+    "hardware": HardwareConfig,
+    "kernels": KernelConfig,
+    "quantization": QuantizationConfig,
+    "parallelism": ParallelismConfig,
+    "model": ModelConfig,
+    "benchmark": BenchmarkConfig,
+    "profiling": ProfilingConfig,
+    "dashboard": DashboardConfig,
+}
+
+
+@dataclasses.dataclass
+class OptimizerConfig:
     """Root config (reference: config_schema.py:73-83)."""
 
-    hardware: HardwareConfig = Field(default_factory=HardwareConfig)
-    kernels: KernelConfig = Field(default_factory=KernelConfig)
-    quantization: QuantizationConfig = Field(default_factory=QuantizationConfig)
-    parallelism: ParallelismConfig = Field(default_factory=ParallelismConfig)
-    model: ModelConfig = Field(default_factory=ModelConfig)
-    benchmark: BenchmarkConfig = Field(default_factory=BenchmarkConfig)
-    profiling: ProfilingConfig = Field(default_factory=ProfilingConfig)
-    dashboard: DashboardConfig = Field(default_factory=DashboardConfig)
+    hardware: HardwareConfig = dataclasses.field(default_factory=HardwareConfig)
+    kernels: KernelConfig = dataclasses.field(default_factory=KernelConfig)
+    quantization: QuantizationConfig = dataclasses.field(
+        default_factory=QuantizationConfig)
+    parallelism: ParallelismConfig = dataclasses.field(
+        default_factory=ParallelismConfig)
+    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    benchmark: BenchmarkConfig = dataclasses.field(
+        default_factory=BenchmarkConfig)
+    profiling: ProfilingConfig = dataclasses.field(
+        default_factory=ProfilingConfig)
+    dashboard: DashboardConfig = dataclasses.field(
+        default_factory=DashboardConfig)
 
-    @model_validator(mode="after")
-    def _validate_world(self) -> "OptimizerConfig":
+    def __post_init__(self):
+        self.validate()
+
+    def validate(self) -> "OptimizerConfig":
+        """Cross-section check: the mesh must fit the available chips."""
         world = self.parallelism.world_size
         chips = self.hardware.num_chips * self.hardware.num_hosts
         if not self.parallelism.auto and world > chips:
@@ -142,3 +201,21 @@ class OptimizerConfig(BaseModel):
                 f"parallelism world size {world} exceeds available chips {chips}"
             )
         return self
+
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, raw: Dict[str, Any]) -> "OptimizerConfig":
+        unknown = set(raw) - set(_SECTIONS)
+        if unknown:
+            raise ValueError(f"unknown config sections: {sorted(unknown)}")
+        sections = {}
+        for name, section_cls in _SECTIONS.items():
+            values = raw.get(name) or {}
+            known = {f.name for f in dataclasses.fields(section_cls)}
+            bad = set(values) - known
+            if bad:
+                raise ValueError(f"unknown keys in '{name}': {sorted(bad)}")
+            sections[name] = section_cls(**values)
+        return cls(**sections)

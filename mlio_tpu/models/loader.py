@@ -2,7 +2,7 @@
 
 Replaces the reference's loader stack (/root/reference/baseline/
 model_loader.py:14-510: BaseModelLoader, HuggingFaceModelLoader,
-CustomModelLoader, regex ModelRegistry). The TPU-native difference: instead
+CustomModelLoader, regex ModelRegistry). The difference: instead
 of keeping a live torch module and mutating it, we convert the weights ONCE
 into this framework's stacked-layer pytree (models/transformer.py) and the
 torch object is never touched again. Works fully offline from a local
@@ -572,12 +572,14 @@ def load_model(
     dtype=jnp.bfloat16,
     torch_model=None,
     spec: Optional[ModelSpec] = None,
+    seed: int = 0,
 ):
     """Load a model by preset name, local checkpoint dir, or torch module.
 
     Returns ``(spec, params)``. Parity: load_model model_loader.py:466-510
-    minus the network path (this environment is offline; checkpoints must be
-    local).
+    minus the network path (checkpoints must be local). A preset name with
+    no checkpoint gets random weights from ``seed``, created on the device
+    under jit.
     """
     path = Path(name_or_path)
     if torch_model is not None:
@@ -596,10 +598,11 @@ def load_model(
         # Preset name without weights → random init (useful for benchmarks).
         import jax
 
-        spec = spec or get_spec(name_or_path)
-        from mlio_tpu.models.transformer import init_params
+        from mlio_tpu.parallel.tensor_parallel import init_sharded_params
 
-        return spec, init_params(spec, jax.random.PRNGKey(0), dtype=dtype)
+        spec = spec or get_spec(name_or_path)
+        return spec, init_sharded_params(spec, jax.random.PRNGKey(seed),
+                                         dtype)
 
     try:
         converter = model_registry.get_converter(name_or_path)

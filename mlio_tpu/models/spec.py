@@ -2,7 +2,7 @@
 
 The reference loads mutable PyTorch models from HF and monkeypatches modules
 (/root/reference/baseline/model_loader.py:56-154, inference.py:283-375).
-The TPU-native design owns the model definition instead: a :class:`ModelSpec`
+This design owns the model definition instead: a :class:`ModelSpec`
 describes the architecture, parameters live in a plain pytree, and
 :class:`Impl` selects compile-time implementation choices (which kernel,
 which cache, which quantization) — replacing the reference's runtime module

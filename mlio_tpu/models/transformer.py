@@ -4,10 +4,10 @@ Replaces the reference's load-and-monkeypatch runtime
 (/root/reference/baseline/inference.py, model_loader.py): here the model is a
 pure function over a parameter pytree. Layers are stacked on a leading axis
 and iterated with ``jax.lax.scan`` so compile time is O(1) in depth and XLA
-sees one fused layer body. Every optimization (flash attention, fused MLP,
-fused norms, paged KV) is selected by the :class:`Impl` dataclass at trace
-time — the TPU-native equivalent of the reference's ModelConverter /
-FusionRegistry module surgery (inference.py:76-375).
+sees one fused layer body. Kernel choices (cuDNN attention, the paged
+decode kernel) are selected by the :class:`Impl` dataclass at trace
+time — the equivalent of the reference's ModelConverter / FusionRegistry
+module surgery (inference.py:76-375).
 """
 from __future__ import annotations
 
@@ -28,32 +28,18 @@ class Impl:
     """Compile-time implementation choices (replaces runtime converters).
 
     Reference counterparts: FlashAttentionConfig flash_attention.py:53-104,
-    FusionRegistry inference.py:76, MLPConverter fused_mlp.py:399.
+    FusionRegistry inference.py:76. See :mod:`mlio_tpu.ops` for what each
+    choice runs.
     """
 
     attention: str = "dense"  # "dense" | "flash" | "ring"
-    mlp: str = "dense"  # "dense" | "fused"
-    norm: str = "dense"  # "dense" | "fused"
-    fused_ln_qkv: bool = False
-    # Decode-step layer iteration: "mega" fuses the WHOLE layer stack into
-    # one Pallas kernel per step (ops/decode_layer.py), "scan" keeps the
-    # per-op lax.scan path, "auto" picks mega when the model qualifies.
-    decode_stack: str = "auto"
-    # None = the kernel's shape-aware heuristic picks (large tiles once the
-    # KV-chunked long-context path engages, smaller ones otherwise).
-    block_q: Optional[int] = None
-    block_kv: Optional[int] = None
     ring_chunk: int = 512
-    interpret: Optional[bool] = None  # Pallas interpreter mode (None = auto)
+    interpret: bool = False  # Pallas interpret mode (tests on the CPU)
     # MoE execution method: "ragged" (dropless grouped matmul, single-shard
     # default), "dispatch" (GShard einsum dispatch — the expert-parallel
     # path), "dense" (all-experts oracle). See ops/moe.py.
     moe: str = "ragged"
     moe_capacity_factor: float = 2.0
-
-    @staticmethod
-    def fastest() -> "Impl":
-        return Impl(attention="flash", mlp="fused", norm="fused")
 
 
 # ---------------------------------------------------------------------------
@@ -172,18 +158,10 @@ def _split_heads(x: jax.Array, num_heads: int) -> jax.Array:
     return x.reshape(B, S, num_heads, -1)
 
 
-def _qkv_proj(h_norm, x, bp, spec, impl):
-    """Project to (q, k, v), flat [B, S, *_dim].
-
-    Three layouts, in priority order: fused LN+QKV Pallas kernel; a single
-    fused ``wqkv`` weight (one big matmul + lane splits — the op-launch
-    optimization for deep scan-path models, see
-    runtime.quantization.fuse_projections); separate wq/wk/wv."""
-    if impl.fused_ln_qkv:
-        return ops.fused_ln_qkv(
-            x, bp["ln1_scale"], bp["ln1_bias"],
-            bp["wq"], bp["bq"], bp["wk"], bp["bk"], bp["wv"], bp["bv"],
-            kind=spec.norm, eps=spec.norm_eps, impl=impl)
+def _qkv_proj(h_norm, bp, spec, impl):
+    """Project to (q, k, v), flat [B, S, *_dim]: one fused ``wqkv`` weight
+    (one matmul + splits, see runtime.quantization.fuse_projections) or
+    separate wq/wk/wv."""
     if bp.get("wqkv") is not None:
         y = ops.linear(h_norm, bp["wqkv"], bp.get("bqkv"), impl=impl)
         qd, kvd = spec.q_dim, spec.kv_dim
@@ -204,14 +182,12 @@ def _run_mlp(h, bp, spec, impl):
             activation=spec.activation, method=impl.moe,
             capacity_factor=impl.moe_capacity_factor).astype(h.dtype)
     if bp.get("w_upgate") is not None:
-        from mlio_tpu.ops.fused_mlp import _activate
-
         y = ops.linear(h, bp["w_upgate"], bp.get("b_upgate"), impl=impl)
         i = spec.intermediate_size
         if y.shape[-1] == 2 * i:  # gated: [up | gate] halves
-            act = _activate(y[..., :i], y[..., i:], spec.activation)
+            act = ops.activate(y[..., :i], y[..., i:], spec.activation)
         else:
-            act = _activate(y, None, spec.activation)
+            act = ops.activate(y, None, spec.activation)
         return ops.linear(act.astype(h.dtype), bp["w_down"],
                           bp["b_down"], impl=impl)
     return ops.mlp(h, bp["w_up"], bp["w_down"],
@@ -238,19 +214,23 @@ def _residual_tail(x, attn_out, h_norm1, bp, spec, impl):
 
 
 def run_layer_stack(x: jax.Array, blocks, spec: ModelSpec, impl: Impl,
-                    cos=None, sin=None) -> jax.Array:
+                    cos=None, sin=None, weight_dtype=None) -> jax.Array:
     """Run a stack of transformer blocks (no KV cache) over x [B, S, H].
 
     Shared by the cache-free path consumers and the pipeline orchestrator,
     which shards the stacked-layer axis across the "pipe" mesh axis and
-    calls this per stage.
+    calls this per stage. ``weight_dtype`` casts each layer's weights inside
+    the scan (a float32 reference over bf16 weights without a float32 copy
+    of the whole model).
     """
     B, S, _ = x.shape
 
     def block_fn(x, bp):
+        if weight_dtype is not None:
+            bp = jax.tree_util.tree_map(lambda w: w.astype(weight_dtype), bp)
         h_norm = ops.norm(x, bp["ln1_scale"], bp["ln1_bias"], kind=spec.norm,
                           eps=spec.norm_eps, impl=impl)
-        q, k, v = _qkv_proj(h_norm, x, bp, spec, impl)
+        q, k, v = _qkv_proj(h_norm, bp, spec, impl)
         q = _split_heads(q, spec.num_heads)
         k = _split_heads(k, spec.num_kv_heads)
         v = _split_heads(v, spec.num_kv_heads)
@@ -280,7 +260,7 @@ def forward(
 
     Without a cache this is a full (prefill/scoring) forward. With a cache
     (see :mod:`mlio_tpu.runtime.kv_cache`) the S new tokens are written at
-    ``cache['pos']`` and attention runs over the whole cached context with a
+    ``cache['pos']`` and attention runs over the cached context with a
     static-shape KV-length mask — the static-shapes design rule that replaces
     the reference's dynamic Python block lists (inference.py:791-1302).
 
@@ -290,7 +270,6 @@ def forward(
     x = params["tok_embed"][input_ids]  # [B, S, H]
     if spec.embed_scale is not None:  # Gemma scales embeddings by sqrt(h)
         x = x * jnp.asarray(spec.embed_scale, x.dtype)
-    dtype = x.dtype
 
     cache_pos = cache["pos"] if cache is not None else jnp.int32(0)
     if positions is None:
@@ -298,94 +277,28 @@ def forward(
         positions = jnp.broadcast_to(positions, (B, S))
 
     if spec.positional == "learned":
-        x = x + params["pos_embed"][positions].astype(dtype)
+        x = x + params["pos_embed"][positions].astype(x.dtype)
         cos = sin = None
     else:
         cos, sin = rope_cos_sin(positions, spec.rope_dim, spec.rope_theta,
                                 jnp.float32)
 
-    kv_len = cache_pos + S if cache is not None else None
-
-    quant_cache = cache is not None and "k_scale" in cache
-
-    # Dedicated decode path: S == 1 with an optimized-attention Impl routes
-    # through _decode_forward, which keeps the cache in the scan CARRY
-    # (in-place while-loop aliasing — no per-layer cache copies) and reads
-    # only the valid prefix via the paged kernel over a contiguous view.
-    if (cache is not None and S == 1 and impl.attention != "dense"
-            and not return_hidden):
-        return _decode_forward(params, spec, x, cache, impl, cos, sin)
-
-    def block_fn(x, layer_inputs):
-        bp, cache_k, cache_v, cache_ks, cache_vs = layer_inputs
-        # --- attention sublayer ---
-        h_norm = ops.norm(x, bp["ln1_scale"], bp["ln1_bias"], kind=spec.norm,
-                          eps=spec.norm_eps, impl=impl)
-        q, k, v = _qkv_proj(h_norm, x, bp, spec, impl)
-        q = _split_heads(q, spec.num_heads)
-        k = _split_heads(k, spec.num_kv_heads)
-        v = _split_heads(v, spec.num_kv_heads)
-        if cos is not None:
-            q = apply_rope(q, cos, sin)
-            k = apply_rope(k, cos, sin)
-
-        if cache_k is not None:
-            # Write the S new tokens into the cache at cache_pos, then attend
-            # over the full static-shape cache with a kv_len mask.
-            if quant_cache:
-                from mlio_tpu.ops.quant import quantize_kv
-
-                kq, ks = quantize_kv(k)
-                vq, vs = quantize_kv(v)
-                cache_k = jax.lax.dynamic_update_slice(
-                    cache_k, kq, (0, cache_pos, 0, 0))
-                cache_v = jax.lax.dynamic_update_slice(
-                    cache_v, vq, (0, cache_pos, 0, 0))
-                cache_ks = jax.lax.dynamic_update_slice(
-                    cache_ks, ks, (0, cache_pos, 0))
-                cache_vs = jax.lax.dynamic_update_slice(
-                    cache_vs, vs, (0, cache_pos, 0))
-                attn = ops.attention(q, cache_k, cache_v, causal=True,
-                                     q_offset=cache_pos, kv_len=kv_len,
-                                     k_scale=cache_ks, v_scale=cache_vs,
-                                     impl=impl)
-            else:
-                cache_k = jax.lax.dynamic_update_slice(
-                    cache_k, k.astype(cache_k.dtype), (0, cache_pos, 0, 0))
-                cache_v = jax.lax.dynamic_update_slice(
-                    cache_v, v.astype(cache_v.dtype), (0, cache_pos, 0, 0))
-                attn = ops.attention(q, cache_k.astype(dtype),
-                                     cache_v.astype(dtype), causal=True,
-                                     q_offset=cache_pos, kv_len=kv_len,
-                                     impl=impl)
-        else:
-            attn = ops.attention(q, k, v, causal=True, impl=impl)
-
-        attn = attn.reshape(B, S, spec.q_dim)
-        attn_out = ops.linear(attn, bp["wo"], bp["bo"], impl=impl)
-        x = _residual_tail(x, attn_out, h_norm, bp, spec, impl)
-        return x, (cache_k, cache_v, cache_ks, cache_vs)
-
-    blocks = params["blocks"]
-    if cache is not None:
-        xs = (blocks, cache["k"], cache["v"],
-              cache.get("k_scale"), cache.get("v_scale"))
-        x, (new_k, new_v, new_ks, new_vs) = jax.lax.scan(block_fn, x, xs)
-        new_cache = {"k": new_k, "v": new_v, "pos": cache_pos + S}
-        if quant_cache:
-            new_cache["k_scale"] = new_ks
-            new_cache["v_scale"] = new_vs
-    else:
-        x, _ = jax.lax.scan(
-            lambda c, bp: (block_fn(c, (bp, None, None, None, None))[0], None),
-            x, blocks)
+    if cache is None:
+        x = run_layer_stack(x, params["blocks"], spec, impl, cos, sin)
         new_cache = None
-
+    else:
+        x, new_cache = _cached_layer_stack(x, params["blocks"], cache, spec,
+                                           impl, cos, sin)
     x = ops.norm(x, params["final_scale"], params["final_bias"], kind=spec.norm,
                  eps=spec.norm_eps, impl=impl)
     if return_hidden:
         return x, new_cache
+    return lm_logits(params, spec, x, impl), new_cache
 
+
+def lm_logits(params: Params, spec: ModelSpec, x: jax.Array,
+              impl: Impl = Impl()) -> jax.Array:
+    """Final-norm hidden states → logits (untied or tied head, softcap)."""
     if params["lm_head"] is not None:
         logits = ops.linear(x, params["lm_head"], params.get("lm_head_bias"),
                             impl=impl)
@@ -394,227 +307,75 @@ def forward(
     if spec.logits_softcap is not None:
         cap = spec.logits_softcap
         logits = cap * jnp.tanh(logits / cap)
-    return logits, new_cache
+    return logits
 
 
-def _decode_forward(params, spec, x, cache, impl, cos, sin):
-    """Single-token decode with carry-held cache + batched decode attention.
+def _cached_layer_stack(x, blocks, cache, spec, impl, cos, sin):
+    """Layer scan over the contiguous cache [L, B, Smax, Hkv, D].
 
-    Two decode-critical properties (SURVEY.md §7 hard parts):
-      * The full [L, B, Smax, Hkv, D] cache rides the layer-scan CARRY, so
-        XLA aliases the buffer across iterations (one in-place token write
-        per layer instead of a 2x-cache copy through scan ys).
-      * Attention reads via ops.decode_attention, which DMAs each time-slice
-        for the WHOLE batch tile in one grid step and clamps beyond-context
-        steps — only the VALID prefix crosses HBM, in ~8 large DMAs per
-        layer rather than (B × blocks) small ones.
+    The whole cache rides the scan CARRY, so XLA updates it in place: one
+    dynamic-update-slice of the S new tokens per layer, no per-step copy of
+    the cache through the scan's outputs. A single decode token (S == 1)
+    attends through ``ops.decode_attention``; longer chunks through
+    ``ops.attention`` over the layer's cache with ``q_offset`` = position.
     """
-    B = x.shape[0]
-    cache_pos = cache["pos"]
+    B, S, _ = x.shape
+    dtype = x.dtype
+    pos = cache["pos"]
+    kv_len = pos + S
     quant = "k_scale" in cache
-    L, _, Smax = cache["k"].shape[:3]
-    if cache["k"].ndim == 5:
-        Hkv, D = cache["k"].shape[3:]
-    else:  # flat [L, B, Smax, Hkv*D] layout (generate's mega-decode carry)
-        Hkv, D = spec.num_kv_heads, spec.head_size
-    ctx = jnp.full((B,), cache_pos + 1, jnp.int32)
-    interp = (impl.interpret if impl.interpret is not None
-              else jax.default_backend() != "tpu")
-
-    from mlio_tpu.ops.decode_attention import decode_attention
-    from mlio_tpu.ops.decode_layer import (
-        decode_layer_stack,
-        supports_decode_stack,
-    )
-    from mlio_tpu.ops.decode_tiled import (
-        choose_tiling,
-        decode_layer_tiled,
-        pad_scales_for_tiled,
-        supports_decode_tiled,
-        unpad_scales_from_tiled,
-    )
-    from mlio_tpu.ops.decode_tiled import _weight_itemsize as _tiled_witem
-
-    use_mega = (impl.decode_stack == "mega"
-                or (impl.decode_stack == "auto"
-                    and supports_decode_stack(spec, cache_quant=quant,
-                                              blocks=params["blocks"],
-                                              smax=Smax)))
-    use_tiled = (not use_mega
-                 and (impl.decode_stack == "tiled"
-                      or (impl.decode_stack == "auto"
-                          and supports_decode_tiled(
-                              spec, B, cache_quant=quant,
-                              blocks=params["blocks"], smax=Smax))))
-    if use_tiled:
-        # Big-model megakernel: same contract, chunk-streamed weights.
-        cs = (cos[:1, 0], sin[:1, 0]) if cos is not None else (None, None)
-        ck, cv = cache["k"], cache["v"]
-        flat_in = ck.ndim == 4
-        if not flat_in:
-            ck = ck.reshape(*ck.shape[:3], -1)
-            cv = cv.reshape(*cv.shape[:3], -1)
-        from mlio_tpu.ops.decode_tiled import _weight_fmt as _tiled_wfmt
-        from mlio_tpu.ops.decode_tiled import resolve_tiling
-        tiling = resolve_tiling(spec, B, _tiled_witem(params["blocks"]) or 2,
-                                1 if quant else 2,
-                                weight_fmt=_tiled_wfmt(params["blocks"]),
-                                cache_len=Smax, quant=quant)
-        ks = vs = None
-        scales_t = True
-        if quant:
-            ks, vs = cache["k_scale"], cache["v_scale"]
-            scales_t = ks.ndim == 5
-            if not scales_t:
-                ks = pad_scales_for_tiled(ks, Hkv, tiling.ka)
-                vs = pad_scales_for_tiled(vs, Hkv, tiling.ka)
-        from mlio_tpu.ops.autotune import lookup_key, tiled_decode_key
-        tuned = lookup_key(tiled_decode_key(
-            spec.hidden_size, spec.kv_dim, B, Smax, quant)) or {}
-        out = decode_layer_tiled(
-            x[:, 0], params["blocks"], ck, cv, cache_pos,
-            cs[0], cs[1], spec=spec, k_scales=ks, v_scales=vs,
-            tiling=tiling, cache_block=tuned.get("cache_block"),
-            kv_depth=tuned.get("kv_depth"), interpret=interp)
-        h, ck, cv = out[:3]
-        if not flat_in:
-            ck = ck.reshape(L, B, Smax, Hkv, D)
-            cv = cv.reshape(L, B, Smax, Hkv, D)
-        x = h[:, None, :].astype(x.dtype)
-        x = ops.norm(x, params["final_scale"], params["final_bias"],
-                     kind=spec.norm, eps=spec.norm_eps, impl=impl)
-        if params["lm_head"] is not None:
-            logits = ops.linear(x, params["lm_head"],
-                                params.get("lm_head_bias"), impl=impl)
-        else:
-            logits = x @ params["tok_embed"].T.astype(x.dtype)
-        if spec.logits_softcap is not None:
-            logits = spec.logits_softcap * jnp.tanh(
-                logits / spec.logits_softcap)
-        new_cache = {"k": ck, "v": cv, "pos": cache_pos + 1}
-        if quant:
-            ks, vs = out[3], out[4]
-            if not scales_t:
-                ks = unpad_scales_from_tiled(ks, Hkv)
-                vs = unpad_scales_from_tiled(vs, Hkv)
-            new_cache["k_scale"], new_cache["v_scale"] = ks, vs
-        return logits, new_cache
-    if use_mega:
-        # Contiguous-cache decode shares one position across the batch, so
-        # the per-step rope table collapses to [1, rope_dim].
-        cs = (cos[:1, 0], sin[:1, 0]) if cos is not None else (None, None)
-        ck, cv = cache["k"], cache["v"]
-        # The megakernel wants the FLAT [L, B, Smax, Hkv*D] cache layout;
-        # generate() carries it flat (flatten_cache) so this is free there.
-        # A 5D cache still works but pays a relayout copy each step.
-        flat_in = ck.ndim == 4
-        if not flat_in:
-            ck = ck.reshape(*ck.shape[:3], -1)
-            cv = cv.reshape(*cv.shape[:3], -1)
-        ks = vs = None
-        scales_t = True
-        if quant:
-            from mlio_tpu.ops.decode_layer import pad_scales_for_mega
-
-            ks, vs = cache["k_scale"], cache["v_scale"]
-            # megakernel wants head-major padded [L, B, pad8(Hkv), Smax]
-            # scales; the scan layout is [L, B, Smax, Hkv] (generate()
-            # converts once at the boundary so this is free there)
-            scales_t = (ks.shape[2] == -(-Hkv // 8) * 8
-                        and ks.shape[3] == Smax)
-            if not scales_t:
-                ks = pad_scales_for_mega(ks, Hkv)
-                vs = pad_scales_for_mega(vs, Hkv)
-        out = decode_layer_stack(
-            x[:, 0], params["blocks"], ck, cv, cache_pos,
-            cs[0], cs[1], spec=spec, k_scales=ks, v_scales=vs,
-            interpret=interp)
-        h, ck, cv = out[:3]
-        if not flat_in:
-            ck = ck.reshape(L, B, Smax, Hkv, D)
-            cv = cv.reshape(L, B, Smax, Hkv, D)
-        x = h[:, None, :].astype(x.dtype)
-        x = ops.norm(x, params["final_scale"], params["final_bias"],
-                     kind=spec.norm, eps=spec.norm_eps, impl=impl)
-        if params["lm_head"] is not None:
-            logits = ops.linear(x, params["lm_head"],
-                                params.get("lm_head_bias"), impl=impl)
-        else:
-            logits = x @ params["tok_embed"].T.astype(x.dtype)
-        if spec.logits_softcap is not None:
-            logits = spec.logits_softcap * jnp.tanh(
-                logits / spec.logits_softcap)
-        new_cache = {"k": ck, "v": cv, "pos": cache_pos + 1}
-        if quant:
-            from mlio_tpu.ops.decode_layer import unpad_scales_from_mega
-
-            ks, vs = out[3], out[4]
-            if not scales_t:  # restore the caller's scan layout
-                ks = unpad_scales_from_mega(ks, Hkv)
-                vs = unpad_scales_from_mega(vs, Hkv)
-            new_cache["k_scale"], new_cache["v_scale"] = ks, vs
-        return logits, new_cache
 
     def block_fn(carry, inputs):
         x, ck, cv, cks, cvs = carry
         bp, layer = inputs
         h_norm = ops.norm(x, bp["ln1_scale"], bp["ln1_bias"], kind=spec.norm,
                           eps=spec.norm_eps, impl=impl)
-        q, k, v = _qkv_proj(h_norm, x, bp, spec, impl)
+        q, k, v = _qkv_proj(h_norm, bp, spec, impl)
         q = _split_heads(q, spec.num_heads)
         k = _split_heads(k, spec.num_kv_heads)
         v = _split_heads(v, spec.num_kv_heads)
         if cos is not None:
             q = apply_rope(q, cos, sin)
             k = apply_rope(k, cos, sin)
-
         if quant:
             from mlio_tpu.ops.quant import quantize_kv
 
-            kq, ksc = quantize_kv(k)
-            vq, vsc = quantize_kv(v)
-            ck = jax.lax.dynamic_update_slice(
-                ck, kq[None], (layer, 0, cache_pos, 0, 0))
-            cv = jax.lax.dynamic_update_slice(
-                cv, vq[None], (layer, 0, cache_pos, 0, 0))
-            cks = jax.lax.dynamic_update_slice(
-                cks, ksc[None], (layer, 0, cache_pos, 0))
-            cvs = jax.lax.dynamic_update_slice(
-                cvs, vsc[None], (layer, 0, cache_pos, 0))
-            attn = decode_attention(
-                q[:, 0], ck, cv, ctx, layer=layer,
-                k_scales=cks, v_scales=cvs, interpret=interp)
+            k, ksc = quantize_kv(k)
+            v, vsc = quantize_kv(v)
+            cks = jax.lax.dynamic_update_slice(cks, ksc[None],
+                                               (layer, 0, pos, 0))
+            cvs = jax.lax.dynamic_update_slice(cvs, vsc[None],
+                                               (layer, 0, pos, 0))
+        ck = jax.lax.dynamic_update_slice(ck, k.astype(ck.dtype)[None],
+                                          (layer, 0, pos, 0, 0))
+        cv = jax.lax.dynamic_update_slice(cv, v.astype(cv.dtype)[None],
+                                          (layer, 0, pos, 0, 0))
+        if S == 1:
+            attn = ops.decode_attention(
+                q[:, 0], ck, cv, jnp.full((B,), kv_len, jnp.int32),
+                layer=layer, k_scales=cks if quant else None,
+                v_scales=cvs if quant else None, impl=impl)
         else:
-            ck = jax.lax.dynamic_update_slice(
-                ck, k.astype(ck.dtype)[None], (layer, 0, cache_pos, 0, 0))
-            cv = jax.lax.dynamic_update_slice(
-                cv, v.astype(cv.dtype)[None], (layer, 0, cache_pos, 0, 0))
-            attn = decode_attention(q[:, 0], ck, cv, ctx, layer=layer,
-                                    interpret=interp)
-
-        attn = attn.reshape(B, 1, spec.q_dim).astype(x.dtype)
+            lk, lv = ck[layer], cv[layer]
+            if not quant:
+                lk, lv = lk.astype(dtype), lv.astype(dtype)
+            attn = ops.attention(q, lk, lv, causal=True, q_offset=pos,
+                                 kv_len=kv_len,
+                                 k_scale=cks[layer] if quant else None,
+                                 v_scale=cvs[layer] if quant else None,
+                                 impl=impl)
+        attn = attn.reshape(B, S, spec.q_dim).astype(dtype)
         attn_out = ops.linear(attn, bp["wo"], bp["bo"], impl=impl)
         x = _residual_tail(x, attn_out, h_norm, bp, spec, impl)
         return (x, ck, cv, cks, cvs), None
 
-    carry0 = (x, cache["k"], cache["v"],
-              cache.get("k_scale") if quant else jnp.zeros((), x.dtype),
-              cache.get("v_scale") if quant else jnp.zeros((), x.dtype))
+    none = jnp.zeros((), dtype)
+    carry0 = (x, cache["k"], cache["v"], cache.get("k_scale", none),
+              cache.get("v_scale", none))
     (x, ck, cv, cks, cvs), _ = jax.lax.scan(
-        block_fn, carry0, (params["blocks"], jnp.arange(spec.num_layers)))
-
-    x = ops.norm(x, params["final_scale"], params["final_bias"],
-                 kind=spec.norm, eps=spec.norm_eps, impl=impl)
-    if params["lm_head"] is not None:
-        logits = ops.linear(x, params["lm_head"], params.get("lm_head_bias"),
-                            impl=impl)
-    else:
-        logits = x @ params["tok_embed"].T.astype(x.dtype)
-    if spec.logits_softcap is not None:
-        logits = spec.logits_softcap * jnp.tanh(logits / spec.logits_softcap)
-
-    new_cache = {"k": ck, "v": cv, "pos": cache_pos + 1}
+        block_fn, carry0, (blocks, jnp.arange(spec.num_layers)))
+    new_cache = {"k": ck, "v": cv, "pos": pos + S}
     if quant:
         new_cache["k_scale"] = cks
         new_cache["v_scale"] = cvs
-    return logits, new_cache
+    return x, new_cache

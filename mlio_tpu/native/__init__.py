@@ -1,6 +1,6 @@
 """Native (C++) host runtime: block allocator + continuous-batching scheduler.
 
-The device step on TPU is one jitted dispatch, so between decode steps the
+The device step is one jitted dispatch, so between decode steps the
 host does the serving-critical bookkeeping — block accounting, table
 assembly, token commit, finish/preemption decisions. The reference keeps all
 of this in Python object graphs (/root/reference/baseline/inference.py:

@@ -1,10 +1,10 @@
 // mlio_tpu native runtime: paged-KV block allocator + continuous-batching
 // scheduler.
 //
-// TPU-native rebuild of the host-side serving runtime the reference keeps in
-// Python (/root/reference/baseline/inference.py:1045-1126 BlockManager,
+// Rebuild of the host-side serving runtime the reference keeps in Python
+// (/root/reference/baseline/inference.py:1045-1126 BlockManager,
 // :1129-1302 PagedKVCache/SequenceMetadata; the preemption TODOs at
-// inference.py:1093,1215 are implemented here). On TPU the device step is a
+// inference.py:1093,1215 are implemented here). The device step is a
 // single jitted dispatch, so the per-step host work — block accounting,
 // table assembly, token commit, finish checks — is the serialization point
 // between decode steps; this library does all of it in one C call over flat

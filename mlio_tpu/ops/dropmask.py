@@ -2,20 +2,15 @@
 
 Parity: the reference's FlashAttentionConfig.dropout / fused-kernel dropout
 (/root/reference/kernels/attention/flash_attention.py:53-104,
-kernels/triton/flash_attention_kernels.py:347-684 dropout path). The TPU
-twist: Pallas's hardware PRNG (pltpu.prng_random_bits) has no interpret-mode
-lowering and ties the mask to the kernel's launch geometry, so instead the
+kernels/triton/flash_attention_kernels.py:347-684 dropout path). The
 keep/drop decision is a **stateless integer hash of the absolute (query
 position, key position, batch, head, seed)**. Properties that matter:
 
-  * forward and backward regenerate the *identical* mask regardless of how
-    either kernel tiles the score matrix (the hash sees absolute positions,
-    not block indices) — the usual FA-dropout bookkeeping (store/reload the
-    mask or replay the PRNG schedule) disappears;
-  * the dense reference twin evaluates the same hash in plain jnp, so tests
-    compare kernel vs reference EXACTLY (same mask), not statistically;
-  * pure int32 mul/xor/shift vector ops — lowers in Mosaic and in CPU
-    interpret mode alike.
+  * the mask does not depend on how a computation tiles the score matrix
+    (the hash sees absolute positions), so forward and backward, and a
+    chunked and an unchunked evaluation, drop the same elements;
+  * tests compare against a fixed mask exactly, not statistically;
+  * pure int32 mul/xor/shift vector ops, on any backend.
 
 The hash is two rounds of a murmur3-style finalizer over a linear mix of
 the coordinates; avalanche quality is far beyond what dropout needs.

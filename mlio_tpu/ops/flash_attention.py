@@ -1,903 +1,46 @@
-"""Pallas flash attention (forward) for TPU.
+"""Fused (flash) attention through cuDNN.
 
-TPU-native rebuild of the reference's Triton FA3 forward kernel
-(/root/reference/kernels/triton/flash_attention_kernels.py:53-325): tiled
-QK^T with online softmax (running max m, normalizer l, rescale-accumulate —
-the alpha/beta update at flash_attention_kernels.py:276-302), causal
-early-exit (:192), GQA (the reference handles GQA at the module level via
-repeat_interleave, flash_attention.py:571-621 — here it's free via the KV
-head index map), and KV-length masking for cache decode.
+Prefill attention at serving lengths is compute-bound, and cuDNN's fused
+attention is already a Hopper kernel, so the flash path hands the call to
+``jax.nn.dot_product_attention(implementation="cudnn")``. This module maps
+the repository's attention arguments onto that call:
 
-Design notes (pallas_guide.md):
-  * grid = (batch, q_head, q_blocks); q-block iteration is innermost so K/V
-    stay VMEM-resident across q tiles of the same (b, h).
-  * K/V for one (b, kv_head) are staged whole into VMEM; the kv loop runs
-    inside the kernel so the MXU sees back-to-back [block_q, D] x [D,
-    block_kv] matmuls. Fits VMEM for Skv*D*2 dtypes ≤ ~4MB (e.g. 8K ctx at
-    D=128 bf16); longer contexts use ring/chunked attention.
-  * kv_len [B] and q_offset are scalar-prefetch args (SMEM) so masking and
-    the causal trip-count are computed before the loop.
-  * softmax statistics and the output accumulator are fp32; matmul inputs
-    stay in the input dtype for MXU throughput (preferred_element_type=f32).
+  * ``causal`` with ``q_offset == 0`` (a Python int) is cuDNN's own causal
+    mask: query i sees keys 0..i;
+  * a nonzero or traced ``q_offset`` (a chunk or a decode step placed after
+    cached context) becomes an explicit boolean mask, query i seeing keys
+    0..q_offset+i, because cuDNN's causal mask is aligned to key 0;
+  * ``kv_len`` (scalar or [B]) becomes ``key_value_seq_lengths``.
+
+cuDNN takes bf16/fp16 inputs with a head dim that is a multiple of 8; other
+inputs raise. The reference path (:func:`mlio_tpu.ops.attention_reference`)
+keeps the extras: int8 KV dequant, dropout, user masks, bias and the softmax
+matrix. ``interpret=True`` maps the same arguments onto XLA's implementation
+of the call, which is how the mapping is tested without a card.
 """
 from __future__ import annotations
 
-import functools
-from typing import Optional
-
 import jax
 import jax.numpy as jnp
-from jax import lax
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-NEG_INF = float("-inf")
 
 
-def _flash_fwd_kernel(kvlen_ref, qoff_ref, *rest,
-                      scale: float, block_kv: int, causal: bool,
-                      kv_super: int, sq: int, chunked: bool,
-                      with_stats: bool = False,
-                      mask_kind: Optional[str] = None,
-                      dropout_rate: float = 0.0):
-    if dropout_rate > 0.0:
-        seed_ref, *rest = rest
-    q_ref, k_ref, v_ref, *rest = rest
-    if mask_kind is not None:
-        mask_ref, *rest = rest
-    else:
-        mask_ref = None
-    o_ref, *rest = rest
-    if with_stats:
-        lse_ref, *scratch = rest
-    else:
-        lse_ref, scratch = None, list(rest)
-    qi = pl.program_id(2)
-    bq = q_ref.shape[2]
-    D = q_ref.shape[3]
-    if dropout_rate > 0.0:
-        from mlio_tpu.ops.dropmask import fold_seed
-
-        seed_eff = fold_seed(seed_ref[0], pl.program_id(0), pl.program_id(1))
-
-    # Fold the softmax scale into q once (done in fp32, cast back for MXU).
-    q = (q_ref[0, 0].astype(jnp.float32) * scale).astype(q_ref.dtype)  # [bq, D]
-    kvlen = kvlen_ref[pl.program_id(0)]
-    qoff = qoff_ref[0]
-    q_start = qi * bq  # local start row; absolute = q_start + qoff
-
-    # Token limit for this q block: never past kv_len; under causality never
-    # past the last query row's absolute position (causal early-exit,
-    # Triton ref :192).
-    tokens = kvlen
+def flash_attention(q, k, v, *, causal: bool = True, scale=None, q_offset=0,
+                    kv_len=None, interpret: bool = False) -> jax.Array:
+    """q [B, Sq, Hq, D], k/v [B, Skv, Hkv, D] → [B, Sq, Hq, D]."""
+    B, Sq = q.shape[:2]
+    Skv = k.shape[1]
+    lens = None
+    if kv_len is not None:
+        lens = jnp.broadcast_to(jnp.asarray(kv_len, jnp.int32), (B,))
+    mask = None
+    is_causal = False
     if causal:
-        tokens = jnp.minimum(tokens, q_start + qoff + bq)
-
-    if chunked:
-        # KV is a 4th sequential grid dim of kv_super-token chunks; (m, l,
-        # acc) live in VMEM scratch across chunk steps. Beyond-limit chunks
-        # are index-clamped (no refetch) and compute-skipped.
-        m_scr, l_scr, acc_scr = scratch
-        kj = pl.program_id(3)
-        n_kv_chunks = pl.num_programs(3)
-        chunk0 = kj * kv_super  # first kv token of this chunk
-
-        @pl.when(kj == 0)
-        def _():
-            m_scr[...] = jnp.full_like(m_scr, NEG_INF)
-            l_scr[...] = jnp.zeros_like(l_scr)
-            acc_scr[...] = jnp.zeros_like(acc_scr)
-    else:
-        chunk0 = 0
-
-    def compute(carry_in):
-        # local (within-chunk) block limits
-        limit = pl.cdiv(jnp.clip(tokens - chunk0, 0, kv_super), block_kv)
-        # blocks strictly below the causal diagonal and fully inside kv_len
-        # need no masking at all — lean VPU path (no iota/where). With a
-        # user mask (or dropout) every block must take the masked path.
-        if mask_kind is None and dropout_rate == 0.0:
-            full_tokens = kvlen
-            if causal:
-                full_tokens = jnp.minimum(full_tokens, q_start + qoff)
-            full_limit = (jnp.clip(full_tokens - chunk0, 0, kv_super)
-                          // block_kv)
+        if isinstance(q_offset, int) and q_offset == 0:
+            is_causal = True
         else:
-            full_limit = jnp.int32(0)
-
-        row_abs = (q_start + qoff
-                   + lax.broadcasted_iota(jnp.int32, (bq, block_kv), 0))
-
-        def body(j, carry, masked):
-            m, l, acc = carry
-            ks = k_ref[0, 0, pl.ds(j * block_kv, block_kv), :]  # [bkv, D]
-            vs = v_ref[0, 0, pl.ds(j * block_kv, block_kv), :]
-            s = lax.dot_general(q, ks, (((1,), (1,)), ((), ())),
-                                preferred_element_type=jnp.float32)
-
-            if masked:
-                col_abs = chunk0 + j * block_kv + lax.broadcasted_iota(
-                    jnp.int32, (bq, block_kv), 1)
-                mask = col_abs < kvlen
-                if causal:
-                    mask = jnp.logical_and(mask, row_abs >= col_abs)
-                if mask_kind == "key":
-                    km = mask_ref[0, 0, 0, pl.ds(j * block_kv, block_kv)]
-                    mask = jnp.logical_and(mask, km[None, :] != 0)
-                elif mask_kind == "full":
-                    mt = mask_ref[0, 0, :, pl.ds(j * block_kv, block_kv)]
-                    mask = jnp.logical_and(mask, mt != 0)
-                s = jnp.where(mask, s, NEG_INF)
-
-            m_new = jnp.maximum(m, jnp.max(s, axis=-1, keepdims=True))
-            m_safe = jnp.where(jnp.isneginf(m_new), 0.0, m_new)
-            alpha = jnp.where(jnp.isneginf(m), 0.0, jnp.exp(m - m_safe))
-            p = jnp.exp(s - m_safe)
-            if masked:
-                p = jnp.where(mask, p, 0.0)
-            l = l * alpha + jnp.sum(p, axis=-1, keepdims=True)
-            pv_p = p
-            if dropout_rate > 0.0:
-                # post-softmax dropout: drops the PV numerator terms only —
-                # the normalizer l stays the true softmax sum (torch
-                # convention). Hash of absolute positions (ops/dropmask.py).
-                from mlio_tpu.ops.dropmask import keep_u01
-
-                col_abs_d = chunk0 + j * block_kv + lax.broadcasted_iota(
-                    jnp.int32, (bq, block_kv), 1)
-                keep = keep_u01(row_abs, col_abs_d, seed_eff) \
-                    >= jnp.float32(dropout_rate)
-                pv_p = jnp.where(keep, p, 0.0) * (1.0 / (1.0 - dropout_rate))
-            pv = lax.dot_general(pv_p.astype(vs.dtype), vs,
-                                 (((1,), (0,)), ((), ())),
-                                 preferred_element_type=jnp.float32)
-            acc = acc * alpha + pv
-            return m_new, l, acc
-
-        carry = lax.fori_loop(0, full_limit,
-                              lambda j, c: body(j, c, masked=False),
-                              carry_in)
-        return lax.fori_loop(full_limit, limit,
-                             lambda j, c: body(j, c, masked=True), carry)
-
-    def finish(m, l, acc):
-        l_safe = jnp.where(l == 0.0, 1.0, l)
-        o_ref[0, 0] = (acc / l_safe).astype(o_ref.dtype)
-        if with_stats:
-            # log-sum-exp of the SCALED scores (scale folded into q above);
-            # -inf where the row saw no valid key
-            lse = jnp.where(l == 0.0, NEG_INF,
-                            jnp.where(jnp.isneginf(m), 0.0, m)
-                            + jnp.log(l_safe))
-            lse_ref[0, 0] = lse
-
-    if not chunked:
-        # Single-chunk fast path: carries stay in registers, unconditional
-        # output write — no scratch round-trips, no pipeline-serializing
-        # pl.when. This is the decode/prefill path for contexts whose K/V
-        # fit the VMEM budget (13x faster than the chunked form at GPT-2
-        # decode shapes).
-        m0 = jnp.full((bq, 1), NEG_INF, jnp.float32)
-        l0 = jnp.zeros((bq, 1), jnp.float32)
-        acc0 = jnp.zeros((bq, D), jnp.float32)
-        m, l, acc = compute((m0, l0, acc0))
-        finish(m, l, acc)
-        return
-
-    @pl.when(chunk0 < tokens)
-    def _():
-        m, l, acc = compute((m_scr[...], l_scr[...], acc_scr[...]))
-        m_scr[...] = m
-        l_scr[...] = l
-        acc_scr[...] = acc
-
-    @pl.when(kj == n_kv_chunks - 1)
-    def _():
-        finish(m_scr[...], l_scr[...], acc_scr[...])
-
-
-def _flash_fwd_kernel_kvq(kvlen_ref, qoff_ref, q_ref, k_ref, v_ref,
-                          kscale_ref, vscale_ref, *rest, scale: float,
-                          block_kv: int, causal: bool, kv_super: int,
-                          sq: int, chunked: bool, with_stats: bool = False,
-                          mask_kind: Optional[str] = None):
-    """INT8-KV variant: k/v arrive as int8 with per-(token, head) scales.
-
-    Dequantization is algebraically fused into the attention math so the MXU
-    never sees a dequantized K/V tile:
-      scores = (q · k_int8) * k_scale[col]      (K scale applied post-dot)
-      pv     = (p * v_scale[col]) · v_int8      (V scale folded into p)
-    This keeps cached bytes at 1 B/element across HBM — the INT8 KV cache
-    capability (BASELINE.md; SURVEY.md §7 "fusing dequant into the attention
-    inner loop").
-    """
-    if mask_kind is not None:
-        mask_ref, *rest = rest
-    else:
-        mask_ref = None
-    o_ref, *rest = rest
-    if with_stats:
-        lse_ref, *scratch = rest
-    else:
-        lse_ref, scratch = None, list(rest)
-    qi = pl.program_id(2)
-    bq = q_ref.shape[2]
-    D = q_ref.shape[3]
-
-    q = (q_ref[0, 0].astype(jnp.float32) * scale).astype(jnp.bfloat16)
-    kvlen = kvlen_ref[pl.program_id(0)]
-    qoff = qoff_ref[0]
-    q_start = qi * bq
-
-    tokens = kvlen
-    if causal:
-        tokens = jnp.minimum(tokens, q_start + qoff + bq)
-
-    if chunked:
-        m_scr, l_scr, acc_scr = scratch
-        kj = pl.program_id(3)
-        n_kv_chunks = pl.num_programs(3)
-        chunk0 = kj * kv_super
-
-        @pl.when(kj == 0)
-        def _():
-            m_scr[...] = jnp.full_like(m_scr, NEG_INF)
-            l_scr[...] = jnp.zeros_like(l_scr)
-            acc_scr[...] = jnp.zeros_like(acc_scr)
-    else:
-        chunk0 = 0
-
-    def compute(carry_in):
-        limit = pl.cdiv(jnp.clip(tokens - chunk0, 0, kv_super), block_kv)
-        row_abs = (q_start + qoff
-                   + lax.broadcasted_iota(jnp.int32, (bq, block_kv), 0))
-
-        def body(j, carry):
-            m, l, acc = carry
-            ks = k_ref[0, 0, pl.ds(j * block_kv, block_kv), :]  # int8
-            vs = v_ref[0, 0, pl.ds(j * block_kv, block_kv), :]
-            ksc = kscale_ref[0, 0, :, pl.ds(j * block_kv, block_kv)]
-            vsc = vscale_ref[0, 0, :, pl.ds(j * block_kv, block_kv)]
-            s = lax.dot_general(q, ks.astype(jnp.bfloat16),
-                                (((1,), (1,)), ((), ())),
-                                preferred_element_type=jnp.float32)
-            s = s * ksc.astype(jnp.float32)  # [bq, bkv] * [1, bkv]
-
-            col_abs = chunk0 + j * block_kv + lax.broadcasted_iota(
-                jnp.int32, (bq, block_kv), 1)
-            mask = col_abs < kvlen
-            if causal:
-                mask = jnp.logical_and(mask, row_abs >= col_abs)
-            if mask_kind == "key":
-                km = mask_ref[0, 0, 0, pl.ds(j * block_kv, block_kv)]
-                mask = jnp.logical_and(mask, km[None, :] != 0)
-            elif mask_kind == "full":
-                mt = mask_ref[0, 0, :, pl.ds(j * block_kv, block_kv)]
-                mask = jnp.logical_and(mask, mt != 0)
-            s = jnp.where(mask, s, NEG_INF)
-
-            m_new = jnp.maximum(m, jnp.max(s, axis=-1, keepdims=True))
-            m_safe = jnp.where(jnp.isneginf(m_new), 0.0, m_new)
-            alpha = jnp.where(jnp.isneginf(m), 0.0, jnp.exp(m - m_safe))
-            p = jnp.exp(s - m_safe)
-            p = jnp.where(mask, p, 0.0)
-            l = l * alpha + jnp.sum(p, axis=-1, keepdims=True)
-            p_scaled = (p * vsc.astype(jnp.float32)).astype(jnp.bfloat16)
-            pv = lax.dot_general(p_scaled, vs.astype(jnp.bfloat16),
-                                 (((1,), (0,)), ((), ())),
-                                 preferred_element_type=jnp.float32)
-            acc = acc * alpha + pv
-            return m_new, l, acc
-
-        return lax.fori_loop(0, limit, body, carry_in)
-
-    def finish(m, l, acc):
-        l_safe = jnp.where(l == 0.0, 1.0, l)
-        o_ref[0, 0] = (acc / l_safe).astype(o_ref.dtype)
-        if with_stats:
-            lse = jnp.where(l == 0.0, NEG_INF,
-                            jnp.where(jnp.isneginf(m), 0.0, m)
-                            + jnp.log(l_safe))
-            lse_ref[0, 0] = lse
-
-    if not chunked:
-        m0 = jnp.full((bq, 1), NEG_INF, jnp.float32)
-        l0 = jnp.zeros((bq, 1), jnp.float32)
-        acc0 = jnp.zeros((bq, D), jnp.float32)
-        m, l, acc = compute((m0, l0, acc0))
-        finish(m, l, acc)
-        return
-
-    @pl.when(chunk0 < tokens)
-    def _():
-        m, l, acc = compute((m_scr[...], l_scr[...], acc_scr[...]))
-        m_scr[...] = m
-        l_scr[...] = l
-        acc_scr[...] = acc
-
-    @pl.when(kj == n_kv_chunks - 1)
-    def _():
-        finish(m_scr[...], l_scr[...], acc_scr[...])
-
-
-def _flash_fwd_stream_kernel(kvlen_ref, qoff_ref, q_ref, k_hbm, v_hbm,
-                             o_ref, *rest, scale: float, block_kv: int,
-                             causal: bool, group: int,
-                             with_stats: bool = False):
-    """Long-context forward with MANUALLY STREAMED KV.
-
-    The chunked-grid variant serializes at every kv-chunk boundary (scratch
-    carry + pl.when guards pause the pipeline). Here the grid stays
-    (B, Hq, q_blocks) and K/V live in HBM (memory_space=ANY); the kernel
-    loops kv blocks with double-buffered async DMAs — the decode-megakernel
-    pattern — so block j+1's fetch flies while block j's dots run and the
-    (m, l, acc) carry never leaves registers. This both removes the
-    serialization AND frees VMEM for much larger q tiles (bq=1024+), which
-    divides total KV refetch traffic by the same factor.
-    """
-    if with_stats:
-        lse_ref, kb, vb, sems = rest
-    else:
-        lse_ref = None
-        kb, vb, sems = rest
-    b = pl.program_id(0)
-    h = pl.program_id(1)
-    qi = pl.program_id(2)
-    bq = q_ref.shape[2]
-    D = q_ref.shape[3]
-    hkv = h // group
-
-    q = (q_ref[0, 0].astype(jnp.float32) * scale).astype(q_ref.dtype)
-    kvlen = kvlen_ref[b]
-    qoff = qoff_ref[0]
-    q_start = qi * bq
-
-    tokens = kvlen
-    if causal:
-        tokens = jnp.minimum(tokens, q_start + qoff + bq)
-    nb = pl.cdiv(tokens, block_kv)
-
-    def copies(j, slot):
-        kr = pltpu.make_async_copy(
-            k_hbm.at[b, hkv, pl.ds(j * block_kv, block_kv), :],
-            kb.at[slot], sems.at[slot])
-        vr = pltpu.make_async_copy(
-            v_hbm.at[b, hkv, pl.ds(j * block_kv, block_kv), :],
-            vb.at[slot], sems.at[kb.shape[0] + slot])
-        return kr, vr
-
-    # depth-3 KV buffering (dma_bench: double buffering leaves the DMA
-    # queue dry between wait and refill; a third slot saturates it)
-    depth = kb.shape[0]
-
-    for d in range(depth - 1):  # prewarm; body(j) fetches j+depth-1 itself
-        @pl.when(nb > d)
-        def _(d=d):
-            kr, vr = copies(d, d)
-            kr.start()
-            vr.start()
-
-    row_iota = lax.broadcasted_iota(jnp.int32, (bq, block_kv), 0)
-    col_iota = lax.broadcasted_iota(jnp.int32, (bq, block_kv), 1)
-    row_abs = q_start + qoff + row_iota
-    m0 = jnp.full((bq, 1), NEG_INF, jnp.float32)
-    l0 = jnp.zeros((bq, 1), jnp.float32)
-    acc0 = jnp.zeros((bq, D), jnp.float32)
-
-    def body(j, carry, masked):
-        m, l, acc = carry
-        slot = lax.rem(j, depth)
-
-        # fetch the block depth-1 ahead into the slot consumed at j-1
-        # (its reads were issued last iteration; in-order issue makes the
-        # overwrite safe — the decode-megakernel refill pattern)
-        nxt = j + depth - 1
-
-        @pl.when(nxt < nb)
-        def _():
-            krn, vrn = copies(nxt, lax.rem(nxt, depth))
-            krn.start()
-            vrn.start()
-
-        kr, vr = copies(j, slot)
-        kr.wait()
-        ks = kb[slot]
-        s = lax.dot_general(q, ks, (((1,), (1,)), ((), ())),
-                            preferred_element_type=jnp.float32)
-        # V lands while the QK^T dot runs; wait only when it's needed
-        vr.wait()
-        vs = vb[slot]
-
-        if masked:
-            col_abs = j * block_kv + col_iota
-            mask = col_abs < kvlen
-            if causal:
-                mask = jnp.logical_and(mask, row_abs >= col_abs)
-            s = jnp.where(mask, s, NEG_INF)
-        m_new = jnp.maximum(m, jnp.max(s, axis=-1, keepdims=True))
-        if masked:
-            m_safe = jnp.where(jnp.isneginf(m_new), 0.0, m_new)
-            alpha = jnp.where(jnp.isneginf(m), 0.0, jnp.exp(m - m_safe))
-        else:
-            # an unmasked block guarantees finite scores: no -inf guards
-            m_safe = m_new
-            alpha = jnp.exp(m - m_safe)
-        p = jnp.exp(s - m_safe)  # exp(-inf - m) == 0: masked lanes vanish
-        l = l * alpha + jnp.sum(p, axis=-1, keepdims=True)
-        pv = lax.dot_general(p.astype(vs.dtype), vs,
-                             (((1,), (0,)), ((), ())),
-                             preferred_element_type=jnp.float32)
-        acc = acc * alpha + pv
-        return m_new, l, acc
-
-    # Interior blocks are FULLY visible (entirely below the causal
-    # diagonal and inside kvlen): run them without any masking/iota/where
-    # VPU work — at 65K context that is ~all blocks. Edge blocks (the
-    # diagonal and the kvlen tail) take the masked path.
-    full_rows_ok = (q_start + qoff) // block_kv  # blocks whole-≤ min row
-    nb_full = jnp.minimum(full_rows_ok if causal
-                          else jnp.iinfo(jnp.int32).max // block_kv,
-                          kvlen // block_kv)
-    nb_full = jnp.minimum(nb_full, nb)
-    m, l, acc = lax.fori_loop(
-        0, nb_full, lambda j, c: body(j, c, masked=False), (m0, l0, acc0))
-    m, l, acc = lax.fori_loop(
-        nb_full, nb, lambda j, c: body(j, c, masked=True), (m, l, acc))
-    l_safe = jnp.where(l == 0.0, 1.0, l)
-    o_ref[0, 0] = (acc / l_safe).astype(o_ref.dtype)
-    if with_stats:
-        lse = jnp.where(l == 0.0, NEG_INF,
-                        jnp.where(jnp.isneginf(m), 0.0, m)
-                        + jnp.log(l_safe))
-        lse_ref[0, 0] = lse
-
-
-def _round_up(x: int, m: int) -> int:
-    return -(-x // m) * m
-
-
-def canonicalize_mask(mask: jax.Array, B: int, Hq: int, Sq: int, Skv: int):
-    """Canonicalize a user attention mask (nonzero = attend).
-
-    Mirrors the reference's shape rules
-    (flash_attention_kernels.py:1232-1271):
-      [B, Skv]            key/padding mask (left- or right-padding)
-      [B, 1, Skv]         same
-      [B, Sq, Skv]        per-query mask
-      [B, Hq|1, Sq, Skv]  full per-head mask
-    Returns ("key", [B, Skv] int8) or ("full", [B, Hm, Sq, Skv] int8).
-    """
-    m = jnp.asarray(mask)
-    if m.ndim == 2:
-        if m.shape != (B, Skv):
-            raise ValueError(f"2D mask must be [batch, kv_len]; got "
-                             f"{m.shape} for B={B}, Skv={Skv}")
-        return "key", m.astype(jnp.int8)
-    if m.ndim == 3:
-        if m.shape[1] == 1 and m.shape == (B, 1, Skv):
-            return "key", m[:, 0].astype(jnp.int8)
-        if m.shape != (B, Sq, Skv):
-            raise ValueError(f"3D mask must be [B, Sq, Skv]; got {m.shape}")
-        return "full", m[:, None].astype(jnp.int8)
-    if m.ndim == 4:
-        if m.shape[0] != B or m.shape[1] not in (1, Hq) \
-                or m.shape[2:] != (Sq, Skv):
-            raise ValueError(f"4D mask must be [B, 1|Hq, Sq, Skv]; got "
-                             f"{m.shape}")
-        return "full", m.astype(jnp.int8)
-    raise ValueError(f"unsupported mask rank {m.ndim}")
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("causal", "scale", "block_q", "block_kv",
-                     "kv_vmem_budget", "interpret", "kv_layout",
-                     "return_stats", "dropout_rate", "out_layout",
-                     "q_layout"),
-)
-def flash_attention(
-    q: jax.Array,
-    k: jax.Array,
-    v: jax.Array,
-    *,
-    causal: bool = True,
-    scale: Optional[float] = None,
-    q_offset=0,
-    kv_len=None,
-    mask: Optional[jax.Array] = None,
-    k_scale: Optional[jax.Array] = None,
-    v_scale: Optional[jax.Array] = None,
-    block_q: Optional[int] = None,
-    block_kv: Optional[int] = None,
-    kv_vmem_budget: int = 6 << 20,
-    interpret: bool = False,
-    kv_layout: str = "bshd",
-    return_stats: bool = False,
-    dropout_rate: float = 0.0,
-    dropout_seed=0,
-    out_layout: str = "bshd",
-    q_layout: str = "bshd",
-):
-    """Flash attention. q [B,Sq,Hq,D], k/v [B,Skv,Hkv,D] → [B,Sq,Hq,D].
-
-    ``q_offset``: absolute position of q[:, 0] (decode with a cache).
-    ``kv_len``: scalar or [B]; cache slots >= kv_len are masked out.
-    ``mask``: optional user attention mask (nonzero = attend), any of
-    [B,Skv] / [B,1,Skv] (key/padding mask — left-padding support), or
-    [B,Sq,Skv] / [B,1|Hq,Sq,Skv] (full mask — prefix-LM, block-diagonal
-    packing, bidirectional); combined with the causal/kv_len masks.
-    Parity: in-kernel mask tile loads, flash_attention_kernels.py:53-325
-    and canonicalization :1232-1271.
-    ``kv_layout="bhsd"``: k/v arrive pre-transposed as [B,Hkv,Skv,D] (the
-    contiguous decode-cache layout) with scales [B,Hkv,Skv] — skips the
-    relayout the kernel would otherwise do per call.
-    ``return_stats``: also return the per-row log-sum-exp of the SCALED
-    scores, [B, Hq, Sq] fp32 (-inf where a row saw no valid key) — the
-    merge statistic for ring/chunked attention across calls.
-    Wrapper parity: triton_flash_attention
-    flash_attention_kernels.py:1150-1315 (shape checks, block heuristics,
-    mask canonicalization).
-    """
-    if q_layout == "bhsd":
-        B, Hq, Sq, D = q.shape
-    else:
-        B, Sq, Hq, D = q.shape
-    if kv_layout == "bhsd":
-        _, Hkv, Skv, _ = k.shape
-    else:
-        _, Skv, Hkv, _ = k.shape
-    assert Hq % Hkv == 0, "query heads must be a multiple of KV heads"
-    group = Hq // Hkv
-    if scale is None:
-        scale = D ** -0.5
-
-    # Block-size heuristic (parity: flash_attention_kernels.py:1259-1271):
-    # clamp to the sequence, keep MXU/VPU-aligned tiles where possible.
-    # Once KV no longer fits the VMEM budget whole (the chunked long-context
-    # path), larger tiles win: bq=512/bkv=1024 measured 43.5 TF/s vs 25.9 at
-    # 256/512 on 65K causal prefill (v5e) — less KV refetch per query token
-    # and fewer chunk-boundary masked blocks.
-    chunk_needed = (2 * _round_up(Skv, 128) * _round_up(D, 128)
-                    * k.dtype.itemsize > kv_vmem_budget)
-    user_pinned_bq = block_q is not None
-    if block_q is None or block_kv is None:
-        # Tuned-table consult (trace-time): the TPU analogue of the
-        # reference's @triton.autotune (flash_attention_kernels.py:39-52).
-        # ops/autotune.py records measured winners per shape class.
-        from mlio_tpu.ops.autotune import lookup as _tuned
-
-        entry = _tuned("flash_fwd", Sq, Skv, D, jnp.dtype(q.dtype).name,
-                       causal, chunk_needed)
-        if block_q is None:
-            tuned_bq = (entry or {}).get("block_q")
-            if tuned_bq is not None:
-                # a table-sourced block_q counts as pinned: the streamed
-                # long-context path must run at the tile the tuner actually
-                # timed, not its own sbq heuristic (ADVICE r2)
-                block_q = tuned_bq
-                user_pinned_bq = True
-            else:
-                block_q = 512 if chunk_needed else 256
-        if block_kv is None:
-            block_kv = (entry or {}).get(
-                "block_kv", 1024 if chunk_needed else 512)
-    bq = min(block_q, _round_up(Sq, 8))
-    bkv = min(block_kv, _round_up(Skv, 128))
-
-    kvlen_arr = jnp.full((B,), Skv, jnp.int32) if kv_len is None else \
-        jnp.broadcast_to(jnp.asarray(kv_len, jnp.int32), (B,))
-    qoff_arr = jnp.asarray(q_offset, jnp.int32).reshape(1)
-
-    # [B, H, S, D] layout for per-(batch, head) tiling.
-    qt = q if q_layout == "bhsd" else q.transpose(0, 2, 1, 3)
-    if kv_layout == "bhsd":
-        kt, vt = k, v
-    else:
-        kt = k.transpose(0, 2, 1, 3)
-        vt = v.transpose(0, 2, 1, 3)
-
-    sq_pad = _round_up(Sq, bq)
-    skv_pad = _round_up(Skv, bkv)
-    if sq_pad != Sq:
-        qt = jnp.pad(qt, ((0, 0), (0, 0), (0, sq_pad - Sq), (0, 0)))
-    if skv_pad != Skv:
-        kt = jnp.pad(kt, ((0, 0), (0, 0), (0, skv_pad - Skv), (0, 0)))
-        vt = jnp.pad(vt, ((0, 0), (0, 0), (0, skv_pad - Skv), (0, 0)))
-
-    # KV staging: whole-K when it fits a VMEM budget, otherwise the kv
-    # sequence becomes a 4th SEQUENTIAL grid dimension of kv_super-token
-    # chunks with (m, l, acc) carried in scratch — this is what makes 65K+
-    # contexts run on one core (the old whole-K staging blew scoped VMEM at
-    # ~16-32K). Beyond-causal-frontier chunks are index-clamped (consecutive
-    # identical indices skip the refetch) and compute-skipped.
-    kv_budget = kv_vmem_budget
-    kv_super = skv_pad
-    itemsize = kt.dtype.itemsize
-    while 2 * kv_super * _round_up(D, 128) * itemsize > kv_budget \
-            and kv_super > bkv:
-        kv_super = _round_up(kv_super // 2, bkv)
-    n_kv_chunks = skv_pad // kv_super if skv_pad % kv_super == 0 \
-        else -(-skv_pad // kv_super)
-    if skv_pad % kv_super:
-        pad_to = n_kv_chunks * kv_super
-        kt = jnp.pad(kt, ((0, 0), (0, 0), (0, pad_to - skv_pad), (0, 0)))
-        vt = jnp.pad(vt, ((0, 0), (0, 0), (0, pad_to - skv_pad), (0, 0)))
-        skv_pad = pad_to
-
-    chunked = n_kv_chunks > 1
-    kv_quant = k_scale is not None
-    if dropout_rate > 0.0 and kv_quant:
-        raise NotImplementedError(
-            "attention dropout with an INT8 KV cache is not supported "
-            "(dropout is a training feature; quantized caches are serving)")
-
-    # Long-context fast path: manually streamed KV (see
-    # _flash_fwd_stream_kernel). Covers the plain causal/kvlen configs; user
-    # masks / INT8 KV / dropout fall back to the chunked-grid variant.
-    if (chunked and mask is None and not kv_quant and dropout_rate == 0.0):
-        sbq = bq if user_pinned_bq else min(1024, _round_up(Sq, 8))
-        sq_pad_s = _round_up(Sq, sbq)
-        qs_t = q if q_layout == "bhsd" else q.transpose(0, 2, 1, 3)
-        if sq_pad_s != Sq:
-            qs_t = jnp.pad(qs_t, ((0, 0), (0, 0), (0, sq_pad_s - Sq),
-                                  (0, 0)))
-        out_shape_s = jax.ShapeDtypeStruct((B, Hq, sq_pad_s, D), q.dtype)
-        if return_stats:
-            out_shape_s = (out_shape_s, jax.ShapeDtypeStruct(
-                (B, Hq, sq_pad_s, 1), jnp.float32))
-        kernel = functools.partial(
-            _flash_fwd_stream_kernel, scale=scale, block_kv=bkv,
-            causal=causal, group=group, with_stats=return_stats)
-        q_spec_s = pl.BlockSpec((1, 1, sbq, D),
-                                lambda b, h, i, *_: (b, h, i, 0))
-        o_spec_s = pl.BlockSpec((1, 1, sbq, D),
-                                lambda b, h, i, *_: (b, h, i, 0))
-        lse_spec_s = pl.BlockSpec((1, 1, sbq, 1),
-                                lambda b, h, i, *_: (b, h, i, 0))
-        out = pl.pallas_call(
-            kernel,
-            grid_spec=pltpu.PrefetchScalarGridSpec(
-                num_scalar_prefetch=2,
-                grid=(B, Hq, sq_pad_s // sbq),
-                in_specs=[q_spec_s,
-                          pl.BlockSpec(memory_space=pl.ANY),
-                          pl.BlockSpec(memory_space=pl.ANY)],
-                out_specs=((o_spec_s, lse_spec_s) if return_stats
-                           else o_spec_s),
-                scratch_shapes=[
-                    pltpu.VMEM((3, bkv, D), kt.dtype),   # depth-3 KV stream
-                    pltpu.VMEM((3, bkv, D), vt.dtype),
-                    pltpu.SemaphoreType.DMA((6,)),
-                ],
-            ),
-            out_shape=out_shape_s,
-            compiler_params=pltpu.CompilerParams(
-                dimension_semantics=("parallel", "parallel", "arbitrary"),
-                # big-tile candidates ((1024,2048)+) need scoped-VMEM room
-                # for the f32 score/prob temporaries
-                vmem_limit_bytes=120 << 20,
-            ),
-            cost_estimate=pl.CostEstimate(
-                flops=4 * B * Hq * Sq * Skv * D,
-                bytes_accessed=(qs_t.size * qs_t.dtype.itemsize
-                                + (kt.size + vt.size) * kt.dtype.itemsize),
-                transcendentals=B * Hq * Sq * Skv,
-            ),
-            interpret=interpret,
-        )(kvlen_arr, qoff_arr, qs_t, kt, vt)
-        if return_stats:
-            o_s, lse_s = out
-            if out_layout == "bhsd":  # skip the O(B*H*S*D) relayout
-                return o_s[:, :, :Sq, :], lse_s[:, :, :Sq, 0]
-            return (o_s[:, :, :Sq, :].transpose(0, 2, 1, 3),
-                    lse_s[:, :, :Sq, 0])
-        if out_layout == "bhsd":
-            return out[:, :, :Sq, :]
-        return out[:, :, :Sq, :].transpose(0, 2, 1, 3)
-
-    # --- user mask: canonicalize + pad to the padded grid shapes ---
-    mask_kind = None
-    mask_arr = None
-    if mask is not None:
-        mask_kind, mask_arr = canonicalize_mask(mask, B, Hq, Sq, Skv)
-        if mask_kind == "key":
-            # [B, Skv] -> [B, 1, 1, skv_pad]; pad = attend (kvlen masks it)
-            if skv_pad != Skv:
-                mask_arr = jnp.pad(mask_arr, ((0, 0), (0, skv_pad - Skv)),
-                                   constant_values=1)
-            mask_arr = mask_arr[:, None, None, :]
-        else:
-            Hm = mask_arr.shape[1]
-            pad_q, pad_k = sq_pad - Sq, skv_pad - Skv
-            if pad_q or pad_k:
-                mask_arr = jnp.pad(
-                    mask_arr, ((0, 0), (0, 0), (0, pad_q), (0, pad_k)),
-                    constant_values=1)
-    out_shape = jax.ShapeDtypeStruct((B, Hq, sq_pad, D), q.dtype)
-    if return_stats:
-        out_shape = (out_shape,
-                     jax.ShapeDtypeStruct((B, Hq, sq_pad, 1),
-                                          jnp.float32))
-    common = dict(
-        out_shape=out_shape,
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=(("parallel", "parallel", "arbitrary",
-                                  "arbitrary") if chunked else
-                                 ("parallel", "parallel", "arbitrary")),
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=4 * B * Hq * Sq * Skv * D,
-            bytes_accessed=(qt.size * qt.dtype.itemsize
-                            + (kt.size + vt.size) * kt.dtype.itemsize),
-            transcendentals=B * Hq * Sq * Skv,
-        ),
-        interpret=interpret,
-    )
-
-    # index maps receive (*grid_indices, *scalar_prefetch_refs)
-    if chunked:
-        grid = (B, Hq, sq_pad // bq, n_kv_chunks)
-
-        def kv_chunk_idx(b, h, i, j, kvlen_ref, qoff_ref, *_):
-            tokens = kvlen_ref[b]
-            if causal:
-                tokens = jnp.minimum(tokens, (i + 1) * bq + qoff_ref[0])
-            last = jnp.maximum(pl.cdiv(tokens, kv_super) - 1, 0)
-            return (b, h // group, jnp.minimum(j, last), 0)
-
-        def sc_chunk_idx(b, h, i, j, kvlen_ref, qoff_ref, *_):
-            bb, hh, jj, _ = kv_chunk_idx(b, h, i, j, kvlen_ref, qoff_ref)
-            return (bb, hh, 0, jj)
-
-        q_spec = pl.BlockSpec((1, 1, bq, D),
-                              lambda b, h, i, j, *_: (b, h, i, 0))
-        out_spec = pl.BlockSpec((1, 1, bq, D),
-                                lambda b, h, i, j, *_: (b, h, i, 0))
-        lse_spec = pl.BlockSpec((1, 1, bq, 1),
-                                lambda b, h, i, j, *_: (b, h, i, 0))
-        if mask_kind == "key":
-            def mask_idx(b, h, i, j, kvlen_ref, qoff_ref, *_):
-                _, _, jj, _ = kv_chunk_idx(b, h, i, j, kvlen_ref, qoff_ref)
-                return (b, 0, 0, jj)
-            mask_spec = pl.BlockSpec((1, 1, 1, kv_super), mask_idx)
-        elif mask_kind == "full":
-            _hm = mask_arr.shape[1]
-
-            def mask_idx(b, h, i, j, kvlen_ref, qoff_ref, *_):
-                _, _, jj, _ = kv_chunk_idx(b, h, i, j, kvlen_ref, qoff_ref)
-                return (b, h if _hm > 1 else 0, i, jj)
-            mask_spec = pl.BlockSpec((1, 1, bq, kv_super), mask_idx)
-        # (m, l, acc) carried across kv-chunk grid steps
-        scratch = [pltpu.VMEM((bq, 1), jnp.float32),
-                   pltpu.VMEM((bq, 1), jnp.float32),
-                   pltpu.VMEM((bq, D), jnp.float32)]
-    else:
-        grid = (B, Hq, sq_pad // bq)
-
-        def kv_chunk_idx(b, h, i, *_):
-            return (b, h // group, 0, 0)
-
-        def sc_chunk_idx(b, h, i, *_):
-            return (b, h // group, 0, 0)
-
-        q_spec = pl.BlockSpec((1, 1, bq, D), lambda b, h, i, *_: (b, h, i, 0))
-        out_spec = pl.BlockSpec((1, 1, bq, D),
-                                lambda b, h, i, *_: (b, h, i, 0))
-        lse_spec = pl.BlockSpec((1, 1, bq, 1),
-                                lambda b, h, i, *_: (b, h, i, 0))
-        if mask_kind == "key":
-            mask_spec = pl.BlockSpec((1, 1, 1, kv_super),
-                                     lambda b, h, i, *_: (b, 0, 0, 0))
-        elif mask_kind == "full":
-            _hm = mask_arr.shape[1]
-            mask_spec = pl.BlockSpec(
-                (1, 1, bq, kv_super),
-                lambda b, h, i, *_: (b, h if _hm > 1 else 0, i, 0))
-        scratch = []
-
-    kv_spec = pl.BlockSpec((1, 1, kv_super, D), kv_chunk_idx)
-
-    if kv_quant:
-        # scales [B, Skv, Hkv] -> [B, Hkv, Skv], padded with ones
-        if kv_layout == "bhsd":
-            ksc = k_scale.astype(jnp.float32)
-            vsc = v_scale.astype(jnp.float32)
-        else:
-            ksc = k_scale.transpose(0, 2, 1).astype(jnp.float32)
-            vsc = v_scale.transpose(0, 2, 1).astype(jnp.float32)
-        if skv_pad != Skv:
-            ksc = jnp.pad(ksc, ((0, 0), (0, 0), (0, skv_pad - Skv)),
-                          constant_values=1.0)
-            vsc = jnp.pad(vsc, ((0, 0), (0, 0), (0, skv_pad - Skv)),
-                          constant_values=1.0)
-        # [B, Hkv, 1, Skv]: the unit axis keeps the block's last-two dims
-        # (1, skv_pad) equal to the array's (TPU block tiling rule).
-        ksc = ksc[:, :, None, :]
-        vsc = vsc[:, :, None, :]
-        if ksc.shape[-1] != skv_pad:  # kv_super padding grew the seq dim
-            extra = skv_pad - ksc.shape[-1]
-            ksc = jnp.pad(ksc, ((0, 0), (0, 0), (0, 0), (0, extra)),
-                          constant_values=1.0)
-            vsc = jnp.pad(vsc, ((0, 0), (0, 0), (0, 0), (0, extra)),
-                          constant_values=1.0)
-        if mask_kind == "full":
-            raise NotImplementedError(
-                "full [.., Sq, Skv] masks are not supported with an INT8 KV "
-                "cache; use a key/padding mask or a bf16 cache")
-        sc_spec = pl.BlockSpec((1, 1, 1, kv_super), sc_chunk_idx)
-        kernel = functools.partial(
-            _flash_fwd_kernel_kvq, scale=scale, block_kv=bkv, causal=causal,
-            kv_super=kv_super, sq=Sq, chunked=chunked,
-            with_stats=return_stats, mask_kind=mask_kind)
-        in_specs = [q_spec, kv_spec, kv_spec, sc_spec, sc_spec]
-        args = [kvlen_arr, qoff_arr, qt, kt, vt, ksc, vsc]
-        if mask_kind is not None:
-            in_specs.append(mask_spec)
-            args.append(mask_arr)
-        out = pl.pallas_call(
-            kernel,
-            grid_spec=pltpu.PrefetchScalarGridSpec(
-                num_scalar_prefetch=2,
-                grid=grid,
-                in_specs=in_specs,
-                out_specs=(out_spec, lse_spec) if return_stats else out_spec,
-                scratch_shapes=scratch,
-            ),
-            **common,
-        )(*args)
-    else:
-        kernel = functools.partial(
-            _flash_fwd_kernel, scale=scale, block_kv=bkv, causal=causal,
-            kv_super=kv_super, sq=Sq, chunked=chunked,
-            with_stats=return_stats, mask_kind=mask_kind,
-            dropout_rate=dropout_rate)
-        in_specs = [q_spec, kv_spec, kv_spec]
-        if dropout_rate > 0.0:
-            # seed rides as a 3rd scalar-prefetch arg (no retrace per step)
-            args = [kvlen_arr, qoff_arr,
-                    jnp.asarray(dropout_seed, jnp.int32).reshape(1),
-                    qt, kt, vt]
-            n_prefetch = 3
-        else:
-            args = [kvlen_arr, qoff_arr, qt, kt, vt]
-            n_prefetch = 2
-        if mask_kind is not None:
-            in_specs.append(mask_spec)
-            args.append(mask_arr)
-        out = pl.pallas_call(
-            kernel,
-            grid_spec=pltpu.PrefetchScalarGridSpec(
-                num_scalar_prefetch=n_prefetch,
-                grid=grid,
-                in_specs=in_specs,
-                out_specs=(out_spec, lse_spec) if return_stats else out_spec,
-                scratch_shapes=scratch,
-            ),
-            **common,
-        )(*args)
-
-    if return_stats:
-        out, lse = out
-        if out_layout == "bhsd":
-            return out[:, :, :Sq, :], lse[:, :, :Sq, 0]
-        return (out[:, :, :Sq, :].transpose(0, 2, 1, 3),
-                lse[:, :, :Sq, 0])
-    if out_layout == "bhsd":
-        return out[:, :, :Sq, :]
-    out = out[:, :, :Sq, :].transpose(0, 2, 1, 3)
-    return out
-
-
-def flash_attention_memory_model(batch, heads, sq, skv, d, dtype_bytes=2,
-                                 block_q=128, block_kv=128):
-    """Theoretical working-set model (parity: FlashAttention3 memory model,
-    flash_attention.py:409-460): O(block) on-chip instead of O(S^2)."""
-    hbm = (batch * heads * (sq + 2 * skv) * d + batch * heads * sq * d) * dtype_bytes
-    vmem_per_program = (block_q * d + 2 * skv * d) * dtype_bytes \
-        + block_q * (d + 2) * 4
-    dense_scores = batch * heads * sq * skv * dtype_bytes
-    return {
-        "hbm_bytes": hbm,
-        "vmem_bytes_per_program": vmem_per_program,
-        "dense_scores_bytes_avoided": dense_scores,
-    }
+            mask = (jnp.arange(Sq)[:, None] + q_offset
+                    >= jnp.arange(Skv)[None, :])[None, None]
+    return jax.nn.dot_product_attention(
+        q, k, v, mask=mask, scale=scale, is_causal=is_causal,
+        key_value_seq_lengths=lens,
+        implementation="xla" if interpret else "cudnn")

@@ -4,7 +4,7 @@ The reference framework has **no MoE support and no expert parallelism**
 (SURVEY.md §2.5: "EP: absent") — this module is a capability addition that
 completes the tp/pp/dp/sp/**ep** parallel-dimension set.
 
-TPU-native design, three execution methods behind one contract:
+Three execution methods behind one contract:
 
 ``dense``
     Every expert runs on every token; outputs are combined with the routing
@@ -14,7 +14,7 @@ TPU-native design, three execution methods behind one contract:
 ``ragged``
     Dropless megablocks-style grouped matmul: replicate each token top_k
     times, sort the copies by expert id, run one ``jax.lax.ragged_dot`` per
-    projection (lowers to a TPU grouped-matmul that skips empty groups),
+    projection (a grouped matmul that skips empty groups),
     unsort, and combine. Exact (bitwise-equal token sets, no capacity drops)
     with top_k/E x the dense-method FLOPs. The default on a single shard.
 
@@ -66,9 +66,9 @@ def router_topk(x: jax.Array, w_router: jax.Array, top_k: int,
 
 
 def _activate(up, gate, activation):
-    from mlio_tpu.ops.fused_mlp import _activate as act
+    from mlio_tpu.ops import activate
 
-    return act(up, gate, activation)
+    return activate(up, gate, activation)
 
 
 def _expert_mlp_batched(xe, w_gate, w_up, w_down, activation, dtype):
@@ -110,7 +110,7 @@ def moe_mlp_ragged(x, w_router, w_gate, w_up, w_down, *, top_k: int,
     """Dropless grouped-matmul MoE (megablocks pattern) via lax.ragged_dot.
 
     Token copies are sorted by expert so each expert's rows are contiguous;
-    ragged_dot([T*k, H], [E, H, I], group_sizes) runs one MXU grouped
+    ragged_dot([T*k, H], [E, H, I], group_sizes) runs one grouped
     matmul. No capacity, no drops.
     """
     dtype = x.dtype

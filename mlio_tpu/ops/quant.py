@@ -1,29 +1,24 @@
-"""Weight quantization (INT8 / INT4 / FP8) with dequant-fused Pallas matmul.
+"""Weight quantization (INT8 / INT4 / FP8) for weight-only serving.
 
 Rebuild + upgrade of the reference's quantization surface
 (/root/reference/baseline/inference.py:467-557: torch dynamic int8, FX static
 int8, bitsandbytes NF4 int4). The reference quantizes by swapping torch
 modules; here quantization is a pytree transform — weights become
 :class:`QTensor` leaves (int8/int4-packed/fp8 payload + per-output-channel
-scales) and every matmul route through :func:`linear`, which dispatches to a
-Pallas kernel that dequantizes INSIDE the matmul tile loop. Weights stream
-from HBM at 1 byte (or half a byte) per element — the decode-bandwidth win
-that sets the BASELINE.json roofline target — and the MXU still sees its
-native dtype.
+scales) and every matmul routes through :func:`linear`, which hands
+``x @ dequantize(w)`` to XLA: the GPU backend fuses the int8→bf16 convert
+into the GEMM's operand read, so weights cross device memory quantized.
 
 Accuracy recipe for the ≤0.1 ppl INT8 gate: per-output-channel symmetric
 scales, fp32 accumulation, scales applied after accumulation.
 """
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple, Optional
 
 import jax
 import jax.numpy as jnp
 from jax import lax
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 
 class QTensor(NamedTuple):
@@ -33,7 +28,7 @@ class QTensor(NamedTuple):
 
     ``act_scale`` (optional, static-calibrated) marks the weight for the
     W8A8 path: activations are quantized to int8 with this scale and the
-    matmul runs int8 x int8 -> int32 on the MXU (2x bf16 MXU throughput;
+    matmul runs int8 x int8 -> int32 (the tensor cores' int8 rate;
     parity: the reference's FX static-int8 intent, inference.py:467-519).
     """
 
@@ -93,13 +88,12 @@ def quantize_int4(w: jax.Array, group_size: Optional[int] = 128) -> QTensor:
     the random-init proxy's resolution: g=64 vs g=128 flips which gate leg
     is better by ~1pp in both directions). ``group_size=None`` keeps
     the per-output-channel layout (scale [N]); otherwise scale is
-    [K//g, N] and the matmul kernel rescales each group's partial sum.
+    [K//g, N] and each group's rows are rescaled on dequant.
 
     Packing pairs row i with row i + K/2 (byte i = q[i] in the low nibble,
-    q[i + K/2] in the high nibble). This "halves" layout lets the matmul
-    kernel dequantize with two contiguous dots — no interleave, which TPU
-    vector units can't do cheaply. Group boundaries always align with the
-    halves split (int4_group_size). (Parity intent: bitsandbytes NF4 path,
+    q[i + K/2] in the high nibble): unpacking is two contiguous halves with
+    no interleave. Group boundaries always align with the halves split
+    (int4_group_size). (Parity intent: bitsandbytes NF4 path,
     inference.py:508-519 — NF4's accuracy comes from its 64-element
     blockwise scales, rebuilt here as power-of-two group scales.)
     """
@@ -142,10 +136,9 @@ def quantize_fp8(w: jax.Array) -> QTensor:
     """FP8 (e4m3) with per-channel scale to use the full fp8 range.
 
     Subnormal e4m3 codes (|x| < 2^-6 after scaling ~ amax * 3.5e-5) are
-    FLUSHED TO ZERO: v5e has no fp8 hardware, so dequant goes through
-    fp8_to_bf16 (integer bit assembly, ~6x faster than the software
-    astype lowering) which handles normals + zero only. The flushed mass
-    is far below int8's own quantization step (amax/127)."""
+    FLUSHED TO ZERO, because dequant goes through fp8_to_bf16 (integer bit
+    assembly), which handles normals + zero only. The flushed mass is far
+    below int8's own quantization step (amax/127)."""
     wf = w.astype(jnp.float32)
     amax = jnp.max(jnp.abs(wf), axis=0)
     scale = jnp.where(amax == 0, 1.0, amax / 448.0)  # e4m3 max = 448
@@ -155,24 +148,12 @@ def quantize_fp8(w: jax.Array) -> QTensor:
     return QTensor(q, scale.astype(jnp.float32), "fp8")
 
 
-# DEMOTED TO DEBUG-ONLY (round 5, VERDICT r4 #6): executing e4m3 weights
-# natively in the tiled decode kernel measures 0.38 of the int8 roofline
-# even though this bit-assembly conversion reaches 526 GB/s standalone —
-# v5e has no fp8 ALU, so the in-kernel convert+dot chain stays
-# convert-bound and never overlaps cleanly with the weight stream. The
-# SERVING path for fp8 checkpoints is runtime.quantization.
-# transcode_fp8_to_int8 (same bytes per element, hardware int8 dequant in
-# the dot, measured ppl delta BELOW e4m3's): 0.783 of roofline on the 70B
-# per-chip slice. Keep this converter for loading/debug/eager use.
 def fp8_to_bf16(w: jax.Array) -> jax.Array:
     """e4m3 -> bf16 via integer bit assembly (normals + zero; subnormal
     codes are not produced by quantize_fp8).
 
     bf16_bits = sign<<15 | (exp+120)<<7 | mant<<4
-              = sign<<15 | ((exp<<3 | mant) + 960) << 4
-    Measured 526 GB/s effective in-kernel on v5e vs 83 GB/s for the
-    software astype lowering (exp_fp8_convert.py) — the chip has no fp8
-    ALU, so the astype is a long scalarized op chain."""
+              = sign<<15 | ((exp<<3 | mant) + 960) << 4"""
     u = lax.bitcast_convert_type(w, jnp.uint8).astype(jnp.int32)
     rest = u & 0x7F
     bits = jnp.where(rest == 0, 0,
@@ -181,7 +162,7 @@ def fp8_to_bf16(w: jax.Array) -> jax.Array:
 
 
 def cast_weight(w: jax.Array, dtype) -> jax.Array:
-    """Storage -> compute cast with the fast fp8 path."""
+    """Storage -> compute cast (fp8 through the bit-assembly path)."""
     if w.dtype == jnp.float8_e4m3fn and dtype in (jnp.bfloat16,
                                                   jnp.dtype(jnp.bfloat16)):
         return fp8_to_bf16(w)
@@ -215,246 +196,12 @@ def dequantize(t: QTensor, dtype=jnp.float32) -> jax.Array:
 
 
 # ---------------------------------------------------------------------------
-# Dequant-fused matmul kernel
-# ---------------------------------------------------------------------------
-
-def _quant_matmul_kernel(x_ref, w_ref, s_ref, o_ref, acc_ref, *, n_k):
-    ki = pl.program_id(2)
-
-    @pl.when(ki == 0)
-    def _():
-        acc_ref[:] = jnp.zeros_like(acc_ref)
-
-    x = x_ref[0]  # [bm, bk]
-    # Dequant to the activation dtype right before the MXU — weights cross
-    # HBM quantized, VMEM holds one tile at a time.
-    wf = w_ref[0].astype(x.dtype)  # [bk, bn]
-    acc_ref[:] += lax.dot_general(x, wf, (((1,), (0,)), ((), ())),
-                                  preferred_element_type=jnp.float32)
-
-    @pl.when(ki == n_k - 1)
-    def _():
-        o_ref[0] = (acc_ref[:] * s_ref[0].astype(jnp.float32)).astype(o_ref.dtype)
-
-
-def _int4_matmul_kernel(xlo_ref, xhi_ref, w_ref, s_ref, o_ref, acc_ref, *,
-                        n_k):
-    ki = pl.program_id(2)
-
-    @pl.when(ki == 0)
-    def _():
-        acc_ref[:] = jnp.zeros_like(acc_ref)
-
-    xl = xlo_ref[0]  # [bm, bkp] — x cols aligned with the low nibbles
-    xh = xhi_ref[0]  # [bm, bkp] — x cols aligned with the high nibbles
-    lo, hi = _nibbles(w_ref[0])  # [bkp, bn] each
-    acc_ref[:] += lax.dot_general(xl, lo.astype(xl.dtype),
-                                  (((1,), (0,)), ((), ())),
-                                  preferred_element_type=jnp.float32)
-    acc_ref[:] += lax.dot_general(xh, hi.astype(xh.dtype),
-                                  (((1,), (0,)), ((), ())),
-                                  preferred_element_type=jnp.float32)
-
-    @pl.when(ki == n_k - 1)
-    def _():
-        o_ref[0] = (acc_ref[:] * s_ref[0].astype(jnp.float32)).astype(o_ref.dtype)
-
-
-def _int4_group_matmul_kernel(xlo_ref, xhi_ref, w_ref, slo_ref, shi_ref,
-                              o_ref, acc_ref, *, n_k, gpb, gsz):
-    """Group-wise-scale int4 matmul: each block holds ``gpb`` groups of
-    ``gsz`` rows; every group's partial dot is rescaled by its own
-    [1, bn] scale row before accumulation (lo and hi nibble halves carry
-    independent group scales). Scales arrive per-k-block, sublane-padded
-    to 8 rows (Mosaic's block rule; see the reshape in quant_matmul)."""
-    ki = pl.program_id(2)
-
-    @pl.when(ki == 0)
-    def _():
-        acc_ref[:] = jnp.zeros_like(acc_ref)
-
-    xl = xlo_ref[0]
-    xh = xhi_ref[0]
-    lo, hi = _nibbles(w_ref[0])
-    for gi in range(gpb):
-        sl = slice(gi * gsz, (gi + 1) * gsz)
-        pl_ = lax.dot_general(xl[:, sl], lo[sl].astype(xl.dtype),
-                              (((1,), (0,)), ((), ())),
-                              preferred_element_type=jnp.float32)
-        ph_ = lax.dot_general(xh[:, sl], hi[sl].astype(xh.dtype),
-                              (((1,), (0,)), ((), ())),
-                              preferred_element_type=jnp.float32)
-        acc_ref[:] += (pl_ * slo_ref[0, gi].astype(jnp.float32)
-                       + ph_ * shi_ref[0, gi].astype(jnp.float32))
-
-    @pl.when(ki == n_k - 1)
-    def _():
-        o_ref[0] = acc_ref[:].astype(o_ref.dtype)
-
-
-def _round_up(x: int, m: int) -> int:
-    return -(-x // m) * m
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("fmt", "block_m", "block_n", "block_k", "interpret"),
-)
-def quant_matmul(
-    x: jax.Array,
-    q: jax.Array,
-    scale: jax.Array,
-    *,
-    fmt: str = "int8",
-    block_m: int = 512,
-    block_n: int = 512,
-    block_k: int = 512,
-    interpret: bool = False,
-) -> jax.Array:
-    """x [..., K] @ dequant(q, scale) [K, N] → [..., N]."""
-    orig_shape = x.shape
-    K = x.shape[-1]
-    N = q.shape[1]
-    pack = 2 if fmt == "int4" else 1
-    assert q.shape[0] * pack == K, (q.shape, K, fmt)
-    x2 = x.reshape(-1, K)
-    M = x2.shape[0]
-
-    bm = min(block_m, _round_up(M, 8))
-    bn = min(block_n, _round_up(N, 128))
-    m_pad, n_pad = _round_up(M, bm), _round_up(N, bn)
-    n_m, n_n = m_pad // bm, n_pad // bn
-
-    if fmt == "int4":
-        # Halves packing needs K/2 split into lane-aligned blocks; fall back
-        # to an XLA dequant matmul for exotic K. Group-wise scales
-        # ([K//g, N], quantize_int4 group_size) use the per-group kernel.
-        grouped = scale.ndim == 2
-        g = K // scale.shape[0] if grouped else 0
-        Kh = K // 2
-        bkp = 0
-        for cand in (block_k, 384, 256, 128):
-            if (cand <= Kh and Kh % cand == 0
-                    and (not grouped or cand % g == 0)):
-                bkp = cand
-                break
-        if bkp == 0:
-            wd = unpack_int4(q).astype(jnp.float32)
-            sc = jnp.repeat(scale, g, axis=0) if grouped else scale
-            return (x @ (wd * sc).astype(x.dtype)).reshape(
-                orig_shape[:-1] + (N,))
-        n_k = Kh // bkp
-        if m_pad != M:
-            x2 = jnp.pad(x2, ((0, m_pad - M), (0, 0)))
-        if n_pad != N:
-            q = jnp.pad(q, ((0, 0), (0, n_pad - N)))
-            scale = jnp.pad(scale, ((0, 0),) * (scale.ndim - 1)
-                            + ((0, n_pad - N),))
-        if grouped:
-            gpb = bkp // g
-            # scale rows regrouped per k-block and sublane-padded to >=8
-            # (a (1, gpb<8, bn) block breaks Mosaic's 8-sublane rule):
-            # [K//g, N] -> [2*n_k, pad8(gpb), N]; lo blocks 0..n_k-1,
-            # hi blocks n_k..2*n_k-1 — same indexing as the x halves
-            spb = _round_up(gpb, 8)
-            sc = scale.reshape(2 * n_k, gpb, n_pad)
-            if spb != gpb:
-                sc = jnp.pad(sc, ((0, 0), (0, spb - gpb), (0, 0)))
-            kernel = functools.partial(_int4_group_matmul_kernel, n_k=n_k,
-                                       gpb=gpb, gsz=g)
-            in_specs = [
-                pl.BlockSpec((1, bm, bkp), lambda m, n, k: (0, m, k)),
-                pl.BlockSpec((1, bm, bkp),
-                             lambda m, n, k: (0, m, k + n_k)),
-                pl.BlockSpec((1, bkp, bn), lambda m, n, k: (0, k, n)),
-                pl.BlockSpec((1, spb, bn), lambda m, n, k: (k, 0, n)),
-                pl.BlockSpec((1, spb, bn),
-                             lambda m, n, k: (k + n_k, 0, n)),
-            ]
-            args = (x2[None], x2[None], q[None], sc, sc)
-        else:
-            kernel = functools.partial(_int4_matmul_kernel, n_k=n_k)
-            in_specs = [
-                pl.BlockSpec((1, bm, bkp), lambda m, n, k: (0, m, k)),
-                pl.BlockSpec((1, bm, bkp),
-                             lambda m, n, k: (0, m, k + n_k)),
-                pl.BlockSpec((1, bkp, bn), lambda m, n, k: (0, k, n)),
-                pl.BlockSpec((1, 1, bn), lambda m, n, k: (0, 0, n)),
-            ]
-            args = (x2[None], x2[None], q[None],
-                    scale.reshape(1, 1, n_pad))
-        out = pl.pallas_call(
-            kernel,
-            grid=(n_m, n_n, n_k),
-            in_specs=in_specs,
-            out_specs=pl.BlockSpec((1, bm, bn), lambda m, n, k: (0, m, n)),
-            out_shape=jax.ShapeDtypeStruct((1, m_pad, n_pad), x.dtype),
-            scratch_shapes=[pltpu.VMEM((bm, bn), jnp.float32)],
-            compiler_params=pltpu.CompilerParams(
-                dimension_semantics=("parallel", "parallel", "arbitrary"),
-            ),
-            cost_estimate=pl.CostEstimate(
-                flops=2 * M * K * N,
-                bytes_accessed=x2.size * x2.dtype.itemsize + q.size,
-                transcendentals=0,
-            ),
-            interpret=interpret,
-        )(*args)
-        return out[0, :M, :N].reshape(orig_shape[:-1] + (N,))
-
-    if M <= 32:
-        # Decode (GEMV-like): XLA's dequant matmul fuses the int8->bf16
-        # convert into its matmul pipeline and sustains ~1TB/s effective on
-        # this chip — measured 2.8x faster than any hand-tiled Pallas
-        # variant at these shapes (including native int8 MXU dots), so the
-        # kernel path is wrong here by construction.
-        y = jnp.dot(x2, q.astype(x.dtype),
-                    preferred_element_type=jnp.float32)
-        y = (y * scale.astype(jnp.float32)).astype(x.dtype)
-        return y.reshape(orig_shape[:-1] + (N,))
-    bk = min(block_k, _round_up(K, 128))
-    k_pad = _round_up(K, bk)
-    if m_pad != M or k_pad != K:
-        x2 = jnp.pad(x2, ((0, m_pad - M), (0, k_pad - K)))
-    if k_pad != K or n_pad != N:
-        q = jnp.pad(q, ((0, k_pad - K), (0, n_pad - N)))
-    if n_pad != N:
-        scale = jnp.pad(scale, ((0, n_pad - N),))
-
-    n_k = k_pad // bk
-    kernel = functools.partial(_quant_matmul_kernel, n_k=n_k)
-    out = pl.pallas_call(
-        kernel,
-        grid=(n_m, n_n, n_k),
-        in_specs=[
-            pl.BlockSpec((1, bm, bk), lambda m, n, k: (0, m, k)),
-            pl.BlockSpec((1, bk, bn), lambda m, n, k: (0, k, n)),
-            pl.BlockSpec((1, 1, bn), lambda m, n, k: (0, 0, n)),
-        ],
-        out_specs=pl.BlockSpec((1, bm, bn), lambda m, n, k: (0, m, n)),
-        out_shape=jax.ShapeDtypeStruct((1, m_pad, n_pad), x.dtype),
-        scratch_shapes=[pltpu.VMEM((bm, bn), jnp.float32)],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "arbitrary"),
-            vmem_limit_bytes=64 << 20,
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * M * K * N,
-            bytes_accessed=x2.size * x2.dtype.itemsize + q.size * q.dtype.itemsize,
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(x2[None], q[None], scale.reshape(1, 1, n_pad))
-    return out[0, :M, :N].reshape(orig_shape[:-1] + (N,))
-
-
-# ---------------------------------------------------------------------------
 # Linear dispatch (dense or quantized)
 # ---------------------------------------------------------------------------
 
 def w8a8_matmul(x: jax.Array, w: "QTensor") -> jax.Array:
-    """Static-scale W8A8: int8 activations x int8 weights -> int32 on the
-    MXU, rescaled by (act_scale * weight_scale) after accumulation.
+    """Static-scale W8A8: int8 activations x int8 weights -> int32,
+    rescaled by (act_scale * weight_scale) after accumulation.
 
     The activation quantizer uses the CALIBRATED static scale (see
     runtime.quantization.calibrate_activation_scales), matching the
@@ -470,17 +217,13 @@ def w8a8_matmul(x: jax.Array, w: "QTensor") -> jax.Array:
             * (s_x * w.scale.astype(jnp.float32))).astype(x.dtype)
 
 
-def linear(x: jax.Array, w, bias=None, *, interpret: bool = False) -> jax.Array:
+def linear(x: jax.Array, w, bias=None) -> jax.Array:
     """x @ w (+ bias) where w is a plain array or a QTensor."""
     if isinstance(w, QTensor):
         if w.act_scale is not None and w.fmt == "int8":
             out = w8a8_matmul(x, w)
-        elif interpret or w.fmt == "fp8":
-            # fp8 dequant matmul goes through XLA (bf16 upcast fuses fine);
-            # interpret mode avoids the Pallas path entirely.
-            out = x @ dequantize(w, x.dtype)
         else:
-            out = quant_matmul(x, w.q, w.scale, fmt=w.fmt, interpret=interpret)
+            out = x @ dequantize(w, x.dtype)
         return out + bias if bias is not None else out
     out = x @ w
     return out + bias if bias is not None else out
@@ -496,9 +239,9 @@ def quantize_kv(x: jax.Array):
     Returns (q int8 [..., D], scale f32 [...]). The scale granularity is one
     value per attention row — fine enough to hold accuracy (K/V rows are
     near-isotropic after RoPE/layernorm), coarse enough that the scales add
-    <1% memory. Dequant happens INSIDE the attention kernels
-    (ops/flash_attention.py, ops/paged_attention.py) so cached bytes cross
-    HBM at 1 byte/element — the INT8 KV-cache capability from BASELINE.md.
+    <1% memory. The paged decode kernel (ops/paged_attention.py) applies
+    the scales inside its loop, so cached bytes cross device memory at
+    1 byte/element.
     """
     xf = x.astype(jnp.float32)
     amax = jnp.max(jnp.abs(xf), axis=-1)

@@ -1,13 +1,14 @@
 """Pure-jnp reference implementations of every optimized op.
 
-These are the trusted-dense baselines each Pallas kernel is validated against
-(tolerance 1e-3), mirroring the reference's pattern of shipping a PyTorch
-fallback next to every Triton kernel (e.g. pytorch_flash_attention
+These are the trusted-dense baselines each kernel is validated against,
+mirroring the reference's pattern of shipping a PyTorch fallback next to
+every Triton kernel (e.g. pytorch_flash_attention
 /root/reference/kernels/triton/flash_attention_kernels.py:1569,
 pytorch_fused_mlp mlp_kernels.py:759, pytorch_layernorm
-layernorm_kernels.py:279). They are also the compute path on CPU test meshes.
+layernorm_kernels.py:279). They are also the plain path that ``Impl()``
+runs on every backend, compiled by XLA.
 
-Shapes (TPU-native convention, head dim last for lane alignment):
+Shapes (head dim last):
   q: [B, Sq, Hq, D]   k, v: [B, Skv, Hkv, D]   Hkv divides Hq (GQA/MQA).
 """
 from __future__ import annotations
@@ -16,6 +17,38 @@ from typing import Optional
 
 import jax
 import jax.numpy as jnp
+
+
+def canonicalize_mask(mask: jax.Array, B: int, Hq: int, Sq: int, Skv: int):
+    """Canonicalize a user attention mask (nonzero = attend).
+
+    Mirrors the reference's shape rules
+    (flash_attention_kernels.py:1232-1271):
+      [B, Skv]            key/padding mask (left- or right-padding)
+      [B, 1, Skv]         same
+      [B, Sq, Skv]        per-query mask
+      [B, Hq|1, Sq, Skv]  full per-head mask
+    Returns ("key", [B, Skv] int8) or ("full", [B, Hm, Sq, Skv] int8).
+    """
+    m = jnp.asarray(mask)
+    if m.ndim == 2:
+        if m.shape != (B, Skv):
+            raise ValueError(f"2D mask must be [batch, kv_len]; got "
+                             f"{m.shape} for B={B}, Skv={Skv}")
+        return "key", m.astype(jnp.int8)
+    if m.ndim == 3:
+        if m.shape[1] == 1 and m.shape == (B, 1, Skv):
+            return "key", m[:, 0].astype(jnp.int8)
+        if m.shape != (B, Sq, Skv):
+            raise ValueError(f"3D mask must be [B, Sq, Skv]; got {m.shape}")
+        return "full", m[:, None].astype(jnp.int8)
+    if m.ndim == 4:
+        if m.shape[0] != B or m.shape[1] not in (1, Hq) \
+                or m.shape[2:] != (Sq, Skv):
+            raise ValueError(f"4D mask must be [B, 1|Hq, Sq, Skv]; got "
+                             f"{m.shape}")
+        return "full", m.astype(jnp.int8)
+    raise ValueError(f"unsupported mask rank {m.ndim}")
 
 
 def attention_reference(
@@ -37,8 +70,8 @@ def attention_reference(
 ) -> jax.Array:
     """Dense softmax attention with GQA, causal masking and KV-length masking.
 
-    ``mask`` (nonzero = attend) accepts the same shapes as
-    flash_attention.canonicalize_mask: [B,Skv], [B,1,Skv], [B,Sq,Skv],
+    ``mask`` (nonzero = attend) accepts the shapes of
+    :func:`canonicalize_mask`: [B,Skv], [B,1,Skv], [B,Sq,Skv],
     [B,1|Hq,Sq,Skv].
 
     ``q_offset`` is the absolute position of q[:, 0] (for decode steps where
@@ -84,8 +117,6 @@ def attention_reference(
             valid = valid[:, None, None, :]
         mask = valid if mask is None else jnp.logical_and(mask, valid)
     if user_mask is not None:
-        from mlio_tpu.ops.flash_attention import canonicalize_mask
-
         kind, m = canonicalize_mask(user_mask, B, Hq, Sq, Skv)
         um = (m[:, None, None, :] if kind == "key" else m) != 0
         mask = um if mask is None else jnp.logical_and(mask, um)
@@ -99,9 +130,9 @@ def attention_reference(
     probs = jnp.where(jnp.isnan(probs), 0.0, probs)
     pv_probs = probs
     if dropout_rate > 0.0:
-        # post-softmax dropout with the SAME position-hash mask the flash
-        # kernels regenerate (ops/dropmask.py) — kernel-vs-reference tests
-        # compare exactly, not statistically. Parity: reference
+        # post-softmax dropout from a position-hashed mask
+        # (ops/dropmask.py): the same (seed, position) always drops the
+        # same element, on every backend. Parity: reference
         # FlashAttentionConfig.dropout (flash_attention.py:53-104).
         from mlio_tpu.ops.dropmask import dense_keep_mask
 

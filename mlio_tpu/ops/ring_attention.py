@@ -11,12 +11,12 @@ SURVEY.md §2.9.12). Here EVERY path uses the running (m, l, acc) merge:
     acc' = acc * exp(m - m') + exp(s - m') v
     l'   = l * exp(m - m') + sum_j exp(s_j - m')
 
-which is exactly the blockwise-softmax recurrence of the flash kernel
-(ops/flash_attention.py), applied across chunks/devices.
+which is the blockwise-softmax recurrence of flash attention, applied across
+chunks/devices.
 
 Single-device :func:`chunked_ring_attention` bounds memory to
 O(S_q * chunk) — the "65K+ context" capability (reference README.md:95-102).
-The distributed version (K/V rotating over the ICI ring via ppermute) lives
+The distributed version (K/V rotating around the device ring via ppermute) lives
 in :mod:`mlio_tpu.parallel.sequence_parallel` and shares :func:`chunk_step`.
 """
 from __future__ import annotations
@@ -86,54 +86,6 @@ def finalize(m, l, acc, dtype) -> jax.Array:
     return out.astype(dtype)
 
 
-def chunk_step_flash(
-    q: jax.Array,          # [B, Sq, Hq, D] (any dtype; MXU sees it as-is)
-    k: jax.Array,          # [B, C, Hkv, D]
-    v: jax.Array,          # [B, C, Hkv, D]
-    m: jax.Array,          # [B, Hq, Sq, 1] running max (scaled-score space)
-    l: jax.Array,          # [B, Hq, Sq, 1]
-    acc: jax.Array,        # [B, Hq, Sq, D]
-    *,
-    scale: float,
-    q_offset,              # absolute position of q[:, 0]
-    k_offset,              # absolute position of k[:, 0]
-    causal: bool,
-    kv_len=None,           # absolute valid-key count (scalar or [B])
-    interpret: bool = False,
-) -> Tuple[jax.Array, jax.Array, jax.Array]:
-    """MXU fast path for :func:`chunk_step` when positions are contiguous
-    ranges: the chunk's attention runs in the Pallas flash kernel
-    (ops/flash_attention.py, return_stats=True) and its (o, lse) result is
-    merged into the running (m, l, acc) — mathematically identical to the
-    jnp path, ~5x faster on TPU (the einsum path is fp32 and materializes
-    [B, Hq, Sq, C] scores)."""
-    from mlio_tpu.ops.flash_attention import flash_attention
-
-    C = k.shape[1]
-    kv_local = None
-    if kv_len is not None:
-        kv_local = jnp.clip(jnp.asarray(kv_len) - k_offset, 0, C)
-    # out_layout="bhsd": the kernel computes head-major anyway, and the
-    # running stats live head-major — skipping the two O(B*H*S*D)
-    # relayouts per chunk saves ~4 GB of HBM traffic on a 65K merge
-    o_t, lse = flash_attention(
-        q, k, v, causal=causal, scale=scale,
-        q_offset=jnp.asarray(q_offset) - k_offset, kv_len=kv_local,
-        return_stats=True, interpret=interpret, out_layout="bhsd")
-    lse = lse[..., None]                                  # [B, Hq, Sq, 1]
-    o_t = o_t.astype(jnp.float32)                         # [B, Hq, Sq, D]
-
-    # Merge (o, lse) as a pre-normalized partial: equivalent stats are
-    # (m_c = lse, l_c = 1, acc_c = o).
-    m_new = jnp.maximum(m, lse)
-    m_safe = jnp.where(jnp.isneginf(m_new), 0.0, m_new)
-    alpha = jnp.where(jnp.isneginf(m), 0.0, jnp.exp(m - m_safe))
-    beta = jnp.where(jnp.isneginf(lse), 0.0, jnp.exp(lse - m_safe))
-    l_new = l * alpha + beta
-    acc_new = acc * alpha + o_t * beta
-    return m_new, l_new, acc_new
-
-
 def init_stats(B, Hq, Sq, D):
     return (jnp.full((B, Hq, Sq, 1), NEG_INF, jnp.float32),
             jnp.zeros((B, Hq, Sq, 1), jnp.float32),
@@ -142,8 +94,7 @@ def init_stats(B, Hq, Sq, D):
 
 @functools.partial(
     jax.jit,
-    static_argnames=("causal", "scale", "chunk_size", "use_flash",
-                     "interpret"),
+    static_argnames=("causal", "scale", "chunk_size"),
 )
 def chunked_ring_attention(
     q: jax.Array,
@@ -155,16 +106,9 @@ def chunked_ring_attention(
     q_offset=0,
     kv_len=None,
     chunk_size: int = 512,
-    use_flash: Optional[bool] = None,
-    interpret: bool = False,
 ) -> jax.Array:
     """Single-device chunked attention: K/V walked chunk-by-chunk with the
     online merge — O(Sq * chunk) score memory regardless of Skv.
-
-    ``use_flash`` (default: auto — True on the TPU backend) runs each
-    chunk's attention in the Pallas flash kernel and merges via
-    :func:`chunk_step_flash`; the jnp path remains for CPU and as the
-    differential-test oracle.
 
     Parity: RingSelfAttention's single-device chunk schedule
     (ring_attention.py:275-410) with the softmax done RIGHT.
@@ -173,8 +117,6 @@ def chunked_ring_attention(
     _, Skv, Hkv, _ = k.shape
     if scale is None:
         scale = D ** -0.5
-    if use_flash is None:
-        use_flash = jax.default_backend() == "tpu"
     C = min(chunk_size, Skv)
     pad = (-Skv) % C
     if pad:
@@ -184,30 +126,10 @@ def chunked_ring_attention(
         kv_len = jnp.asarray(Skv if kv_len is None else kv_len)
     n_chunks = (Skv + pad) // C
 
-    qf = q if use_flash else q.astype(jnp.float32)
+    qf = q.astype(jnp.float32)
     q_pos = jnp.arange(Sq) + q_offset
     kr = k.reshape(B, n_chunks, C, Hkv, D).transpose(1, 0, 2, 3, 4)
     vr = v.reshape(B, n_chunks, C, Hkv, D).transpose(1, 0, 2, 3, 4)
-
-    if use_flash:
-        # Single-device fold (VERDICT r4 #3): when every K/V chunk is
-        # local and contiguous — always true in this single-device
-        # schedule — the ring chunk loop IS the streamed flash kernel's
-        # sequential kv-chunk grid dimension, so the whole walk runs as
-        # ONE kernel with the (m, l, acc) carry in VMEM scratch: no
-        # per-chunk launches, no stacked (o, lse) buffers, no final merge
-        # pass over O(n_chunks * Sq * D) f32. The DISTRIBUTED ring (K/V
-        # rotating between chips) keeps the per-step chunk_step_flash
-        # carry merge with a ppermute between steps
-        # (parallel/sequence_parallel.py) — that merge is what the
-        # collective schedule fundamentally requires; on one device it is
-        # pure overhead.
-        from mlio_tpu.ops.flash_attention import flash_attention
-
-        return flash_attention(
-            q, k, v, causal=causal, scale=scale,
-            q_offset=jnp.asarray(q_offset), kv_len=kv_len,
-            interpret=interpret)
 
     def body(carry, inputs):
         m, l, acc = carry

@@ -3,7 +3,7 @@
 Rebuild of the reference's RuntimeAdaptiveExecutor
 (/root/reference/parallelism/orchestrator.py:421-483): it registered
 monitoring hooks on the model and switched parallelism strategy under memory
-pressure. The TPU-native shape is different — sharding is a *compile-time*
+pressure. The shape here is different — sharding is a *compile-time*
 property, so adaptation means choosing among pre-validated plans and
 re-jitting — but the capability is the same:
 

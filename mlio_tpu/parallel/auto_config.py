@@ -2,78 +2,53 @@
 
 Rebuild of /root/reference/parallelism/auto_config.py (ParallelismCostModel
 :19-518, AutoParallelConfig :520-843): exhaustive search over (tp, sp, pp,
-dp) factorizations of the chip count, scored by an analytic model. TPU
-differences: hardware numbers come from a v5e/v5p/v4 table + ICI/DCN
-bandwidths instead of CUDA-capability guesses (auto_config.py:559-593), and
-the communication model uses ring-collective math over ICI with a DCN
-penalty when a group spans hosts.
+dp) factorizations of the device count, scored by an analytic model.
+Hardware numbers come from the device-kind peak table
+(:mod:`mlio_tpu.utils.peaks`) instead of CUDA-capability guesses
+(auto_config.py:559-593). The cards of one host are joined all to all by
+NVLink, so every group's collectives run at the per-card link rate and the
+mesh layout follows the algorithm alone.
 """
 from __future__ import annotations
 
 import dataclasses
-import itertools
 from typing import Dict, List, Optional, Tuple
 
 import jax
 
 from mlio_tpu.models.spec import ModelSpec
 from mlio_tpu.parallel.collectives import estimate_collective_time
-
-CHIP_SPECS = {
-    # name: (bf16 TFLOP/s, HBM GB, HBM GB/s, ICI GB/s per link, chips/host)
-    "v5e": (197.0, 16.0, 819.0, 186.0, 8),
-    "v5p": (459.0, 95.0, 2765.0, 600.0, 4),
-    "v4": (275.0, 32.0, 1228.0, 300.0, 4),
-    "cpu": (0.2, 8.0, 50.0, 10.0, 8),  # virtual-device testing
-}
-
-DCN_GBPS = 25.0  # conservative per-host DCN
+from mlio_tpu.utils.peaks import DEFAULT_KIND, device_peaks
 
 
 @dataclasses.dataclass(frozen=True)
 class HardwareSpec:
-    chip: str = "v5e"
+    kind: str = DEFAULT_KIND  # jax.Device.device_kind
     num_chips: int = 8
-    num_hosts: int = 1
 
     @property
     def peak_tflops(self) -> float:
-        return CHIP_SPECS[self.chip][0]
+        return device_peaks(self.kind).bf16_flops / 1e12
 
     @property
     def hbm_gb(self) -> float:
-        return CHIP_SPECS[self.chip][1]
+        return device_peaks(self.kind).hbm_bytes / 1e9
 
     @property
     def hbm_gbps(self) -> float:
-        return CHIP_SPECS[self.chip][2]
+        return device_peaks(self.kind).hbm_bytes_per_s / 1e9
 
     @property
-    def ici_gbps(self) -> float:
-        return CHIP_SPECS[self.chip][3]
-
-    @property
-    def chips_per_host(self) -> int:
-        per = CHIP_SPECS[self.chip][4]
-        if self.num_hosts > 1:
-            per = min(per, max(1, self.num_chips // self.num_hosts))
-        return min(self.num_chips, per)
+    def link_gbps(self) -> float:
+        return device_peaks(self.kind).link_bytes_per_s / 1e9
 
 
 def detect_hardware() -> HardwareSpec:
-    """(parity: hardware detection auto_config.py:559-593)."""
+    """(parity: hardware detection auto_config.py:559-593). The device
+    kind must be in the peak table."""
     devices = jax.devices()
-    kind = devices[0].device_kind.lower() if devices else "cpu"
-    if "v5 lite" in kind or "v5e" in kind:
-        chip = "v5e"
-    elif "v5" in kind:
-        chip = "v5p"
-    elif "v4" in kind:
-        chip = "v4"
-    else:
-        chip = "cpu"
-    return HardwareSpec(chip=chip, num_chips=len(devices),
-                        num_hosts=max(1, jax.process_count()))
+    device_peaks(devices[0].device_kind)
+    return HardwareSpec(kind=devices[0].device_kind, num_chips=len(devices))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -135,32 +110,20 @@ class ParallelismCostModel:
         spec = self.spec
         act_bytes = (batch / max(1, plan.dp)) * (seq_len / max(1, plan.sp)) \
             * spec.hidden_size * self.dtype_bytes
-        link = self.hw.ici_gbps
-        # Axes nest tensor-innermost, then seq, then pp/dp: any group whose
-        # span exceeds a host's chips crosses the host boundary and pays
-        # DCN instead of ICI (the reference's topology mapping,
-        # communication.py:1116-1630, as mesh-axis placement).
-        cph = self.hw.chips_per_host
-        chips_used = plan.world
-        link_tp = link if plan.tp <= cph else DCN_GBPS
-        link_sp = link if plan.tp * plan.sp <= cph else DCN_GBPS
-        if plan.dp * plan.pp > 1 and chips_used > cph:
-            link_dp = DCN_GBPS
-        else:
-            link_dp = link
+        link = self.hw.link_gbps
         t = 0.0
         if plan.tp > 1:
             t += 2 * spec.num_layers * estimate_collective_time(
                 int(act_bytes), plan.tp, collective="all_reduce",
-                link_gbps=link_tp)
+                link_gbps=link)
         if plan.sp > 1:
             kv_bytes = 2 * (seq_len / plan.sp) * spec.kv_dim \
                 * self.dtype_bytes * (batch / max(1, plan.dp))
             t += spec.num_layers * (plan.sp - 1) * estimate_collective_time(
                 int(kv_bytes), plan.sp, collective="ppermute",
-                link_gbps=link_sp)
+                link_gbps=link)
         if plan.pp > 1:
-            t += (plan.pp - 1) * act_bytes / (link_dp * 1e9)
+            t += (plan.pp - 1) * act_bytes / (link * 1e9)
         return t
 
     # -- scoring -------------------------------------------------------------

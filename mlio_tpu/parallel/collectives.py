@@ -1,11 +1,11 @@
 """Collective communication primitives (shard_map-scoped).
 
 Rebuild of /root/reference/parallelism/communication.py (1,865 LoC of
-torch.distributed/NCCL plumbing) — on TPU each primitive is ONE XLA op
-inside shard_map, and everything the reference hand-builds (stream overlap
-communication.py:502-578, tree all-reduce :96-179, NCCL env tuning
-:886-1114, NVLink topology discovery :1116-1630, pinned buffer pools :856)
-is owned by the XLA scheduler and the ICI fabric. The mapping table
+torch.distributed/NCCL plumbing) — here each primitive is ONE XLA op
+inside shard_map, which XLA hands to NCCL, and everything the reference
+hand-builds (stream overlap communication.py:502-578, tree all-reduce
+:96-179, NCCL env tuning :886-1114, NVLink topology discovery :1116-1630,
+pinned buffer pools :856) is owned by XLA's scheduler. The mapping table
 (SURVEY.md §2.5):
 
     all_reduce      -> lax.psum / pmean
@@ -78,7 +78,7 @@ def broadcast(x: jax.Array, axis: str, *, root: int = 0) -> jax.Array:
 
 def ring_exchange(*tensors: jax.Array, axis: str,
                   direction: int = 1) -> Tuple[jax.Array, ...]:
-    """Send to rank+direction, receive from rank-direction — one ICI-ring
+    """Send to rank+direction, receive from rank-direction — one ring
     rotation (parity: ring_exchange v2 communication.py:1694-1831; the
     recv-before-send deadlock dance collapses into one ppermute)."""
     sz = lax.axis_size(axis)
@@ -106,11 +106,12 @@ def estimate_collective_time(
     num_devices: int,
     *,
     collective: str = "all_reduce",
-    link_gbps: float = 186.0,
+    link_gbps: float = 450.0,
 ) -> float:
-    """Analytic collective-time model over an ICI ring (replaces the
-    reference's measured-bandwidth matrices communication.py:1222-1364 —
-    ICI is a known fabric, so model it).
+    """Analytic collective-time model (replaces the reference's
+    measured-bandwidth matrices communication.py:1222-1364). ``link_gbps``
+    is one card's link rate in one direction; the default is an H100's
+    NVLink share (mlio_tpu.utils.peaks).
 
     Ring algorithms: all_reduce moves 2(n-1)/n of the data, all_gather and
     reduce_scatter (n-1)/n, ppermute 1/n-th per step.

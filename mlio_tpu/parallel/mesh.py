@@ -1,4 +1,4 @@
-"""Device mesh construction — the TPU-native replacement for process groups.
+"""Device mesh construction — the replacement for process groups.
 
 Replaces the reference's NCCL process-group grid
 (/root/reference/parallelism/parallel_utils.py:882-1002
@@ -7,10 +7,10 @@ one `jax.sharding.Mesh` over named axes ("data", "seq", "tensor") expresses
 the whole 4D layout; XLA's GSPMD inserts and schedules the collectives the
 reference issues by hand on CUDA streams.
 
-Axis placement: the "tensor" axis is innermost so TP collectives ride the
-fastest ICI links; "data" is outermost so multi-host slices put DP over DCN
-(scaling-book recipe). Multi-host init parity: initialize_distributed
-communication.py:12-27 → jax.distributed.initialize.
+The cards of one host are joined all to all by NVLink, so axis order does
+not change link speed; "tensor" stays innermost by convention. Multi-host
+init parity: initialize_distributed communication.py:12-27 →
+jax.distributed.initialize.
 """
 from __future__ import annotations
 
@@ -37,8 +37,7 @@ def make_mesh(
     The product must equal the device count used (parity with the
     validation in ParallelConfig, orchestrator.py:61-120). The "expert"
     axis carries MoE expert parallelism (a capability the reference lacks,
-    SURVEY.md §2.5); it sits just outside "tensor" so the dispatch
-    all-to-alls still ride ICI.
+    SURVEY.md §2.5); it sits just outside "tensor".
     """
     if devices is None:
         devices = jax.devices()

@@ -3,8 +3,8 @@ Ulysses all-to-all, via shard_map collectives.
 
 Rebuild of /root/reference/parallelism/sequence_parallel.py (1,050 LoC of
 module wrappers, comm-buffer pools and per-step NCCL ring_exchange,
-communication.py:1694-1831) in the TPU idiom: ONE shard_map whose body
-rotates K/V around the ICI ring with ``jax.lax.ppermute`` while each step
+communication.py:1694-1831) as ONE shard_map whose body
+rotates K/V around the device ring with ``jax.lax.ppermute`` while each step
 accumulates blockwise attention with the correct (m, l) merge — XLA's
 latency-hiding scheduler overlaps the permute with compute, replacing the
 reference's manual send/recv CUDA streams.
@@ -32,34 +32,20 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from mlio_tpu.ops.ring_attention import (
     chunk_step,
-    chunk_step_flash,
     finalize,
     init_stats,
 )
 
 
-def _use_flash(use_flash):
-    # Pallas per-chunk attention on TPU; jnp einsum path on CPU (tests run
-    # on an 8-virtual-device CPU mesh where Mosaic can't lower).
-    return jax.default_backend() == "tpu" if use_flash is None else use_flash
-
-
-def _chunk_update(q, kc, vc, m, l, acc, *, scale, q_start, k_start, causal,
-                  use_flash, interpret=False):
-    """One local (m, l, acc) accumulation against a contiguous K/V chunk,
-    via the Pallas flash kernel (MXU) or the jnp oracle."""
-    if use_flash:
-        return chunk_step_flash(q, kc, vc, m, l, acc, scale=scale,
-                                q_offset=q_start, k_offset=k_start,
-                                causal=causal, interpret=interpret)
+def _chunk_update(q, kc, vc, m, l, acc, *, scale, q_start, k_start, causal):
+    """One local (m, l, acc) accumulation against a contiguous K/V chunk."""
     S_loc, C = q.shape[1], kc.shape[1]
     return chunk_step(q.astype(jnp.float32), kc, vc, m, l, acc, scale=scale,
                       q_positions=q_start + jnp.arange(S_loc),
                       k_positions=k_start + jnp.arange(C), causal=causal)
 
 
-def _local_ring_body(q, k, v, *, axis: str, causal: bool, scale: float,
-                     use_flash: bool, interpret: bool = False):
+def _local_ring_body(q, k, v, *, axis: str, causal: bool, scale: float):
     """shard_map body: q/k/v are the LOCAL [B, S_loc, H(q|kv), D] shards."""
     sp = lax.axis_size(axis)
     idx = lax.axis_index(axis)
@@ -74,8 +60,7 @@ def _local_ring_body(q, k, v, *, axis: str, causal: bool, scale: float,
         chunk_idx = (idx - s) % sp
         m, l, acc = _chunk_update(q, kc, vc, m, l, acc, scale=scale,
                                   q_start=q_start, k_start=chunk_idx * S_loc,
-                                  causal=causal, use_flash=use_flash,
-                                  interpret=interpret)
+                                  causal=causal)
         # Rotate K/V around the ring (reference: ring_exchange
         # communication.py:1694-1831 → one ppermute).
         perm = [(i, (i + 1) % sp) for i in range(sp)]
@@ -90,8 +75,7 @@ def _local_ring_body(q, k, v, *, axis: str, causal: bool, scale: float,
 
 
 @functools.partial(jax.jit, static_argnames=("mesh", "axis", "causal", "scale",
-                                             "strategy", "use_flash",
-                                             "interpret"))
+                                             "strategy"))
 def sequence_parallel_attention(
     q: jax.Array,
     k: jax.Array,
@@ -102,8 +86,6 @@ def sequence_parallel_attention(
     causal: bool = True,
     scale: Optional[float] = None,
     strategy: str = "ring",
-    use_flash: Optional[bool] = None,
-    interpret: bool = False,
 ) -> jax.Array:
     """Attention with q/k/v sharded on the sequence dim over ``axis``.
 
@@ -113,12 +95,10 @@ def sequence_parallel_attention(
     if scale is None:
         scale = q.shape[-1] ** -0.5
     spec = P(None, axis, None, None)
-    use_flash = _use_flash(use_flash)
 
     if strategy == "ring":
         body = functools.partial(_local_ring_body, axis=axis, causal=causal,
-                                 scale=scale, use_flash=use_flash,
-                                 interpret=interpret)
+                                 scale=scale)
     elif strategy == "full":
         def body(q, k, v):
             # all-gather K/V over the ring, then one local blockwise pass
@@ -130,8 +110,7 @@ def sequence_parallel_attention(
             m, l, acc = init_stats(B, Hq, S_loc, D)
             m, l, acc = _chunk_update(q, kg, vg, m, l, acc, scale=scale,
                                       q_start=idx * S_loc, k_start=0,
-                                      causal=causal, use_flash=use_flash,
-                                      interpret=interpret)
+                                      causal=causal)
             return finalize(m, l, acc, q.dtype)
     elif strategy == "local":
         def body(q, k, v):
@@ -142,8 +121,7 @@ def sequence_parallel_attention(
             m, l, acc = init_stats(B, Hq, S_loc, D)
             m, l, acc = _chunk_update(q, k, v, m, l, acc, scale=scale,
                                       q_start=pos0, k_start=pos0,
-                                      causal=causal, use_flash=use_flash,
-                                      interpret=interpret)
+                                      causal=causal)
             return finalize(m, l, acc, q.dtype)
     elif strategy == "ulysses":
         def body(q, k, v):
@@ -159,8 +137,7 @@ def sequence_parallel_attention(
             m, l, acc = init_stats(B, Hq_loc, S, D)
             m, l, acc = _chunk_update(qa, ka, va, m, l, acc, scale=scale,
                                       q_start=0, k_start=0,
-                                      causal=causal, use_flash=use_flash,
-                                      interpret=interpret)
+                                      causal=causal)
             out = finalize(m, l, acc, q.dtype)
             # back: [B, S, H/sp, D] → [B, S/sp, H, D]
             return lax.all_to_all(out, axis, split_axis=1, concat_axis=2,

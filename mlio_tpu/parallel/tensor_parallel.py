@@ -11,7 +11,8 @@ all-reduce the reference issues manually at tensor_parallel.py:300-326).
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+import functools
+from typing import Any, Dict, Optional
 
 import jax
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
@@ -116,6 +117,27 @@ def shard_params(params, spec: ModelSpec, mesh: Mesh):
     return jax.tree_util.tree_map(
         leaf, params, specs,
         is_leaf=lambda x: x is None or isinstance(x, QTensor))
+
+
+def init_sharded_params(spec: ModelSpec, key: jax.Array, dtype,
+                        mesh: Optional[Mesh] = None):
+    """Random-init parameters under jit, every leaf created where it lives.
+
+    With a ``mesh`` each leaf comes out sharded by :func:`param_specs`, so a
+    model larger than one card never lands whole on the first one; without
+    one, on the default device. Either way no float32 copy of the weights is
+    materialized."""
+    from mlio_tpu.models.transformer import init_params
+
+    fn = functools.partial(init_params, spec, dtype=dtype)
+    if mesh is None:
+        return jax.jit(fn)(key)
+    shapes = jax.eval_shape(fn, key)
+    specs = _prune_to(shapes, param_specs(spec))
+    shardings = jax.tree_util.tree_map(
+        lambda s: NamedSharding(mesh, s), specs,
+        is_leaf=lambda x: isinstance(x, P))
+    return jax.jit(fn, out_shardings=shardings)(key)
 
 
 def data_specs() -> Dict[str, Any]:

@@ -2,10 +2,10 @@
 
 Rebuild of /root/reference/profiling/bottleneck_analyzer.py (BottleneckType
 :20, BottleneckReport :31-150, BottleneckAnalyzer :153-521). The reference
-classifies by kernel-name pattern matching over profiler tables; the TPU
+classifies by kernel-name pattern matching over profiler tables; this
 version classifies from first principles: XLA's compiled cost analysis gives
-FLOPs and bytes accessed, and the chip's roofline (peak FLOP/s vs HBM GB/s)
-decides compute- vs memory-bound; measured wall time vs cost-model time
+FLOPs and bytes accessed, and the device's roofline (peak FLOP/s vs memory
+bytes/s from mlio_tpu.utils.peaks) decides compute- vs memory-bound; measured wall time vs cost-model time
 exposes overhead/communication-bound executables.
 """
 from __future__ import annotations
@@ -16,6 +16,8 @@ import json
 from typing import Any, Dict, List, Optional
 
 import numpy as np
+
+from mlio_tpu.utils.peaks import device_peaks
 
 
 class BottleneckType(enum.Enum):
@@ -29,10 +31,6 @@ class BottleneckType(enum.Enum):
     MIXED = "mixed"
 
 
-# v5e roofline constants (per chip)
-PEAK_FLOPS = {"bf16": 197e12, "fp32": 98e12, "int8": 394e12}
-HBM_GBPS = 819.0
-ICI_GBPS = 186.0  # per-link bidirectional, v5e
 
 
 @dataclasses.dataclass
@@ -78,10 +76,10 @@ class BottleneckReport:
 _SUGGESTIONS = {
     # (parity: per-class suggestions bottleneck_analyzer.py:442-521)
     BottleneckType.COMPUTE: [
-        "use bf16 (or int8 weight-only) to raise MXU throughput",
-        "increase batch size to improve MXU utilization",
-        "enable fused kernels (Impl.fastest()) to remove elementwise stalls",
-        "shard with tensor parallelism to add MXUs",
+        "use bf16 (or fp8/int8) to raise tensor-core throughput",
+        "increase batch size to improve tensor-core utilization",
+        "use Impl(attention=\"flash\") for cuDNN fused attention",
+        "shard with tensor parallelism to add cards",
     ],
     BottleneckType.MEMORY: [
         "quantize weights to int8/int4 (dequant-fused matmul halves HBM reads)",
@@ -90,7 +88,7 @@ _SUGGESTIONS = {
         "increase batch size so weight reads amortize over more tokens",
     ],
     BottleneckType.COMMUNICATION: [
-        "keep tensor-parallel groups within one host's ICI ring",
+        "keep tensor-parallel groups within one host's NVLink domain",
         "use ring attention (ppermute) instead of all-gather for long context",
         "overlap collectives with compute (XLA latency-hiding is on by default)",
         "lower communication dtype to bf16",
@@ -106,10 +104,13 @@ _SUGGESTIONS = {
 class BottleneckAnalyzer:
     """(parity: BottleneckAnalyzer bottleneck_analyzer.py:153-440)."""
 
-    def __init__(self, peak_flops: float = PEAK_FLOPS["bf16"],
-                 hbm_gbps: float = HBM_GBPS):
-        self.peak_flops = peak_flops
-        self.hbm_bps = hbm_gbps * 1e9
+    def __init__(self, kind: Optional[str] = None):
+        """``kind``: device kind whose published peaks bound the roofline
+        (default: the first JAX device's)."""
+        peaks = device_peaks(kind)
+        self.peak_flops = peaks.bf16_flops
+        self.hbm_bps = peaks.hbm_bytes_per_s
+        self.link_bps = peaks.link_bytes_per_s
 
     def analyze(self, *, wall_time_s: float, flops: float = 0.0,
                 bytes_accessed: float = 0.0, comm_bytes: float = 0.0,
@@ -117,7 +118,7 @@ class BottleneckAnalyzer:
         """Classify a measured step against the roofline."""
         t_compute = flops / self.peak_flops / max(1, num_devices)
         t_memory = bytes_accessed / self.hbm_bps / max(1, num_devices)
-        t_comm = comm_bytes / (ICI_GBPS * 1e9) if comm_bytes else 0.0
+        t_comm = comm_bytes / self.link_bps if comm_bytes else 0.0
         t_model = max(t_compute, t_memory) + t_comm
         overhead = max(0.0, wall_time_s - t_model)
 
@@ -130,7 +131,7 @@ class BottleneckAnalyzer:
             bottlenecks.append(Bottleneck(
                 BottleneckType.COMPUTE, min(1.0, t_compute / denom),
                 f"arithmetic intensity {intensity:.1f} FLOP/B >= ridge "
-                f"{ridge:.1f}; MXU-bound at {flops / denom / 1e12:.1f} TFLOP/s "
+                f"{ridge:.1f}; tensor-core-bound at {flops / denom / 1e12:.1f} TFLOP/s "
                 f"({flops / denom / self.peak_flops:.0%} of peak)",
                 _SUGGESTIONS[BottleneckType.COMPUTE]))
         if t_memory > t_compute and bytes_accessed:
@@ -144,7 +145,7 @@ class BottleneckAnalyzer:
         if t_comm:
             bottlenecks.append(Bottleneck(
                 BottleneckType.COMMUNICATION, min(1.0, t_comm / denom),
-                f"{comm_bytes / 1e6:.1f} MB over ICI per step",
+                f"{comm_bytes / 1e6:.1f} MB over the card links per step",
                 _SUGGESTIONS[BottleneckType.COMMUNICATION]))
         if overhead / denom > 0.3:
             bottlenecks.append(Bottleneck(
@@ -215,12 +216,14 @@ class BottleneckAnalyzer:
         )
 
 
-def _per_op_bound(source: Any, compute: bool, min_pct: float) -> List[str]:
+def _per_op_bound(source: Any, compute: bool, min_pct: float,
+                  kind: Optional[str]) -> List[str]:
     """Shared walk: classify each OpTable row by its own arithmetic
     intensity against the chip ridge point. ``source`` is an xplane OpTable
     / KernelProfileResults (per-op flops + bytes from the trace's XLA cost
     stats) or, legacy, a whole-executable cost dict."""
-    ridge = PEAK_FLOPS["bf16"] / (HBM_GBPS * 1e9)
+    peaks = device_peaks(kind)
+    ridge = peaks.bf16_flops / peaks.hbm_bytes_per_s
     table = getattr(source, "table", source)
     ops = getattr(table, "ops", None)
     if ops is None:  # whole-executable cost dict (jit(...).cost_analysis())
@@ -243,17 +246,19 @@ def _per_op_bound(source: Any, compute: bool, min_pct: float) -> List[str]:
 
 
 def identify_compute_bound_ops(source: Any, min_pct: float = 1.0,
-                               threshold: float = 10.0) -> List[str]:
+                               threshold: float = 10.0,
+                               kind: Optional[str] = None) -> List[str]:
     """Names of ops whose arithmetic intensity puts them above the ridge
-    point (MXU-bound). Accepts an xplane ``OpTable`` /
+    point of device ``kind`` (tensor-core-bound). Accepts an xplane ``OpTable`` /
     ``KernelProfileResults`` — per-op flops and bytes come from the XLA
     cost stats in the device trace — or a whole-executable cost dict
     (parity: bottleneck_analyzer.py:330-384)."""
-    return _per_op_bound(source, compute=True, min_pct=min_pct)
+    return _per_op_bound(source, compute=True, min_pct=min_pct, kind=kind)
 
 
-def identify_memory_bound_ops(source: Any, min_pct: float = 1.0) -> List[str]:
-    """Names of ops below the ridge point (HBM-bound); same sources as
+def identify_memory_bound_ops(source: Any, min_pct: float = 1.0,
+                              kind: Optional[str] = None) -> List[str]:
+    """Names of ops below the ridge point (memory-bound); same sources as
     :func:`identify_compute_bound_ops` (parity:
     bottleneck_analyzer.py:386-440)."""
-    return _per_op_bound(source, compute=False, min_pct=min_pct)
+    return _per_op_bound(source, compute=False, min_pct=min_pct, kind=kind)

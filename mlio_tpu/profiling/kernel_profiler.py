@@ -1,18 +1,18 @@
 """Per-op/per-kernel profiler: trace capture -> op-time table -> analysis.
 
-TPU rebuild of /root/reference/profiling/kernel_profiler.py:
+Rebuild of /root/reference/profiling/kernel_profiler.py:
   * KernelProfileResults (:22-161) — per-kernel stats table, top-k, the
     slow-kernel filter, and a text timeline;
   * KernelProfiler (:164-380) — profile a callable and produce those stats;
   * occupancy/efficiency analysis (:458) — here done from first principles:
     each op's measured time vs the whole-program XLA cost analysis roofline
-    (MXU peak / HBM bandwidth) instead of CUDA occupancy heuristics.
+    (peak FLOP/s / memory bandwidth) instead of CUDA occupancy heuristics.
 
 Ground truth is a ``jax.profiler.trace`` capture parsed by
-:mod:`mlio_tpu.profiling.xplane` (no TensorFlow dependency). Some remote TPU
-backends do not emit device traces; :meth:`KernelProfiler.profile_segments`
-is the fallback — it times caller-named segments with the scan-marginal
-methodology and produces the same table shape.
+:mod:`mlio_tpu.profiling.xplane` (no TensorFlow dependency). Where a backend
+emits no device trace, :meth:`KernelProfiler.profile_segments` times
+caller-named segments with the scan-marginal methodology and produces the
+same table shape.
 """
 from __future__ import annotations
 
@@ -52,8 +52,7 @@ class KernelProfileResults:
 
     def op_time_fraction(self) -> float:
         """Fraction of wall time covered by summed op time (<< 1 means the
-        step is dominated by gaps/dispatch, the TPU analogue of low
-        occupancy)."""
+        step is dominated by gaps/dispatch: device idle time)."""
         if not self.wall_time_s:
             return 0.0
         return min(1.0, self.table.total_us / 1e6 / self.wall_time_s)
@@ -79,7 +78,7 @@ class KernelProfiler:
     """Profile a callable down to individual compiled ops.
 
     (parity: KernelProfiler kernel_profiler.py:164-380; the nvprof CSV
-    parser :382-456 has no TPU analogue — the xplane capture is already
+    parser :382-456 has no analogue here — the xplane capture is already
     op-granular.)
     """
 
@@ -94,8 +93,8 @@ class KernelProfiler:
                          ) -> Optional[KernelProfileResults]:
         """Trace ``fn(*args)`` and build the per-op table.
 
-        Returns None when the backend emitted no usable trace (e.g. remote
-        TPU relays) — use :meth:`profile_segments` there.
+        Returns None when the backend emitted no usable trace — use
+        :meth:`profile_segments` there.
         """
         jitted = fn if hasattr(fn, "lower") else jax.jit(fn)
 
@@ -132,8 +131,7 @@ class KernelProfiler:
         Each segment is a jittable thunk ``f(n) -> host-synced result``
         running its piece n times inside jit (lax.scan); the two-length
         marginal ``(T(hi) - T(lo)) / (hi - lo)`` cancels dispatch and
-        compile-cache effects (the verified TPU microbenchmark
-        methodology — see bench.py).
+        compile-cache effects (as ``ops.validation.benchmark_op``).
         """
         stats: List[OpStats] = []
         for name, make in segments.items():

@@ -53,7 +53,7 @@ class DeviceMemoryTracker:
 
 def per_layer_memory(spec, batch_size: int = 1, seq_len: int = 128,
                      dtype=jnp.bfloat16) -> Dict[str, int]:
-    """Analytic per-layer memory (weights + activations) — the TPU
+    """Analytic per-layer memory (weights + activations) — the
     replacement for forward-hook measurement (memory_tracker.py:138-205):
     under jit there are no per-layer hooks, so this reports the static
     model's per-layer footprint."""

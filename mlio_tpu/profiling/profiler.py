@@ -1,7 +1,7 @@
 """Profiler wrapper: wall-time stats + XLA traces + compiled-cost tables.
 
 Rebuild of /root/reference/profiling/torch_profiler.py (ProfilerConfig :18,
-ProfileResults :55, TorchProfilerWrapper :190) on the TPU stack: the
+ProfileResults :55, TorchProfilerWrapper :190) on the JAX stack: the
 torch.profiler activity tables become (a) ``jax.profiler.trace`` captures
 (TensorBoard/Perfetto-compatible) and (b) XLA compiled-artifact cost and
 memory analyses, which give FLOPs/bytes per executable without tracing

@@ -1,8 +1,8 @@
 """Per-op device-time tables from ``jax.profiler.trace`` captures.
 
-TPU-native rebuild of the reference's kernel profiler
+Rebuild of the reference's kernel profiler
 (/root/reference/profiling/kernel_profiler.py:22-161 — per-kernel time
-tables, slow-kernel filter, occupancy analysis). On TPU the ground truth is
+tables, slow-kernel filter, occupancy analysis). The ground truth is
 the XLA profiler's XSpace protobuf (``*.xplane.pb`` under
 ``<trace_dir>/plugins/profile/<run>/``): device planes carry one line per
 XLA module plus an "XLA Ops" line whose events are the individual fused
@@ -325,7 +325,7 @@ class OpTable:
         }
 
 
-_DEVICE_MARKERS = ("TPU", "GPU", "/device:")
+_DEVICE_MARKERS = ("GPU", "/device:")
 # Lines that time individual compiled ops rather than whole modules/steps.
 _OP_LINE_NAMES = ("XLA Ops", "XLA TraceMe", "Tensorflow Ops")
 # CPU traces put op events on the host plane under per-client lines.

@@ -2,8 +2,8 @@
 
 Rebuild of /root/reference/baseline/inference.py:1594-1678
 (DiffusionInferenceRunner: wraps a diffusers pipeline and monkeypatches
-``scheduler.step`` to time each denoise step). The TPU-native design owns
-the sampling loop instead: DDIM/Euler schedulers are pure functions, the
+``scheduler.step`` to time each denoise step). This design owns the
+sampling loop instead: DDIM/Euler schedulers are pure functions, the
 whole denoise loop can run inside one jit (lax.scan), and per-step latencies
 come from an eager timed mode — no monkeypatching.
 
@@ -173,7 +173,7 @@ def _timestep_embedding(t, dim: int):
 
 
 def _group_norm(x, scale, bias, groups: int, eps: float = 1e-5):
-    """GroupNorm over NHWC (channels last — the TPU-native conv layout)."""
+    """GroupNorm over NHWC (channels last)."""
     N, H, W, C = x.shape
     g = x.reshape(N, H, W, groups, C // groups)
     mu = jnp.mean(g, axis=(1, 2, 4), keepdims=True)
@@ -187,8 +187,8 @@ def make_unet_denoiser(cfg: UNetConfig = UNetConfig(),
     """A real UNet-shaped denoiser: conv ResNet blocks with GroupNorm/SiLU
     and timestep conditioning, strided-conv downsampling, a mid
     self-attention block, skip connections, nearest-neighbour upsampling —
-    the diffusers UNet2DModel architecture re-expressed TPU-first (NHWC so
-    channels ride the lane dim; convs lower onto the MXU via XLA).
+    the diffusers UNet2DModel architecture re-expressed in NHWC (channels
+    last, the layout XLA's GPU convolutions prefer).
 
     Returns (denoise_fn, params) with ``eps = denoise_fn(params, x, t)``
     over NHWC ``x`` — plug-compatible with DiffusionInferenceRunner.

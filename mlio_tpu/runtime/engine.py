@@ -17,7 +17,8 @@ Split of responsibilities:
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence
+import time
+from typing import Dict, List, Optional, Sequence, Union
 
 import jax
 import jax.numpy as jnp
@@ -29,6 +30,7 @@ from mlio_tpu.ops.paged_attention import init_kv_pools
 from mlio_tpu.runtime.paged_forward import decode_paged, prefill_paged
 from mlio_tpu.runtime.sampling import SamplingMethod, sample
 from mlio_tpu.runtime.scheduler import make_scheduler
+from mlio_tpu.utils.device_utils import enable_compile_cache
 
 
 @dataclasses.dataclass
@@ -39,6 +41,9 @@ class Request:
     eos_token: Optional[int] = None
     output: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
+    # host clock (time.perf_counter): submission, and first token on host
+    submitted_at: float = 0.0
+    first_token_at: Optional[float] = None
 
 
 def _bucket(n: int, buckets: Sequence[int]) -> int:
@@ -49,59 +54,6 @@ def _bucket(n: int, buckets: Sequence[int]) -> int:
 
 
 import functools
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("spec", "k", "method", "kv_combined",
-                                    "interpret", "lm_vmajor", "lm_V",
-                                    "lm_Vc"),
-                   donate_argnums=(3, 4))
-def _decode_mega_steps(params, lm_w, cur, k_pool, v_pool, tables, ctx, rng,
-                       *, spec, k, method, kv_combined, interpret,
-                       lm_vmajor, lm_V, lm_Vc):
-    """k decode steps through the PAGED MEGAKERNEL in one dispatch: each
-    step is embedding + ONE pallas_call over the block-table pools + one
-    pool scatter (ops/decode_paged_stack.py) — the engine's hot loop runs
-    at megakernel speed instead of ~100 XLA ops/step. Greedy sampling
-    happens inside the kernel (argmax epilogue, logits never reach HBM);
-    other methods take the kernel's streamed-logits output."""
-    from mlio_tpu.ops.decode_paged_stack import (decode_paged_stack,
-                                                 rope_tables_for_paged)
-
-    greedy = method.temperature == 0.0
-
-    def step(carry, rng_i):
-        cur, kp, vp, ctx = carry
-        past = ctx - 1
-        x = params["tok_embed"][cur]
-        if spec.embed_scale is not None:
-            x = x * jnp.asarray(spec.embed_scale, x.dtype)
-        rope = None
-        if spec.positional == "learned":
-            x = x + params["pos_embed"][past].astype(x.dtype)
-        else:
-            rope = rope_tables_for_paged(spec, past, spec.num_heads,
-                                         spec.num_kv_heads)
-        out, kp, vp = decode_paged_stack(
-            x, params["blocks"], kp, vp, tables, past, rope, spec=spec,
-            head_norm=(params["final_scale"], params["final_bias"]),
-            lm_head=lm_w, lm_head_bias=params.get("lm_head_bias"),
-            lm_vmajor=lm_vmajor, vocab_chunk=lm_Vc, vocab_size=lm_V,
-            emit="greedy" if greedy else "logits",
-            kv_combined=kv_combined, interpret=interpret)
-        if greedy:
-            tok = out.astype(jnp.int32)
-        else:
-            tok = sample(out[:, :lm_V], rng_i, method).astype(jnp.int32)
-        return (tok, kp, vp, ctx + 1), tok
-
-    rngs = jax.random.split(rng, k)
-    (cur, kp, vp, ctx), toks = jax.lax.scan(
-        step, (cur, k_pool, v_pool, ctx), rngs)
-    # cur (the scan's final token carry) rides back as a device array so
-    # the pipelined loop can chain the next chunk without a host fetch or
-    # a separate slice dispatch
-    return toks, cur, kp, vp
 
 
 @functools.partial(jax.jit,
@@ -142,7 +94,7 @@ class _ManagerView:
 
 
 class InferenceEngine:
-    """Continuous batching over paged KV (vLLM-style, TPU static shapes)."""
+    """Continuous batching over paged KV (vLLM-style, static shapes)."""
 
     def __init__(
         self,
@@ -161,9 +113,9 @@ class InferenceEngine:
         scheduler: str = "auto",
         prefix_caching: bool = True,
         steps_per_dispatch: int = 8,
-        decode_stack: str = "auto",
     ):
         spec.validate()
+        enable_compile_cache()
         # multi-step scheduling: up to this many decode steps run device-
         # side per host interaction (rounded down to a power of two so jit
         # variants stay bounded). 1 = classic step-per-dispatch.
@@ -182,40 +134,9 @@ class InferenceEngine:
             self.prefill_buckets.append(self.max_seq_len)
         if num_blocks is None:
             num_blocks = max_batch * self.max_blocks_per_seq + 1
-        # Decode backend: "mega" runs each decode step as ONE pallas_call
-        # over the paged pools (ops/decode_paged_stack.py) — the engine's
-        # default whenever the model fits the megakernel's constraints.
-        # "perop" is the lax.scan per-op path (runtime/paged_forward.py).
-        from mlio_tpu.ops.decode_paged_stack import supports_paged_stack
-
-        use_mega = decode_stack == "mega" or (
-            decode_stack == "auto"
-            and supports_paged_stack(spec, params.get("blocks")))
-        self.decode_stack = "mega" if use_mega else "perop"
-        self.interpret = (impl.interpret if impl.interpret is not None
-                          else jax.default_backend() != "tpu")
-        if use_mega:
-            # FLAT pools (no head dim): k|v pack onto one buffer's lanes
-            # when the lane split lands on a 128 boundary (one DMA per
-            # block per sequence in-kernel), else twin flat pools.
-            self.kv_combined = spec.kv_dim % 128 == 0
-            W = 2 * spec.kv_dim if self.kv_combined else spec.kv_dim
-            self.k_pool = jnp.zeros(
-                (spec.num_layers, num_blocks, block_size, W), dtype)
-            self.v_pool = None if self.kv_combined else jnp.zeros(
-                (spec.num_layers, num_blocks, block_size, W), dtype)
-            from mlio_tpu.ops.decode_layer import pad_lm_head_for_mega
-
-            lm_w = (params["lm_head"] if params.get("lm_head") is not None
-                    else params["tok_embed"])
-            self._lm_vmajor = params.get("lm_head") is None
-            # pad ONCE at init — an O(V*H) copy must not ride the hot loop
-            self._lm_w, self._lm_V, self._lm_Vc = pad_lm_head_for_mega(
-                lm_w, self._lm_vmajor)
-        else:
-            self.k_pool, self.v_pool = init_kv_pools(
-                spec.num_layers, num_blocks, spec.num_kv_heads, block_size,
-                spec.head_size, dtype=dtype)
+        self.k_pool, self.v_pool = init_kv_pools(
+            spec.num_layers, num_blocks, spec.num_kv_heads, block_size,
+            spec.head_size, dtype=dtype)
         self.sched = make_scheduler(max_batch, num_blocks, block_size,
                                     self.max_blocks_per_seq,
                                     prefix_caching, backend=scheduler)
@@ -234,8 +155,14 @@ class InferenceEngine:
             "prompt + generation exceeds max_seq_len"
         rid = self.sched.submit(prompt, max_new_tokens, eos_token)
         self.requests[rid] = Request(rid, list(prompt), max_new_tokens,
-                                     eos_token)
+                                     eos_token,
+                                     submitted_at=time.perf_counter())
         return rid
+
+    def _first_token(self, slot: int) -> None:
+        req = self.requests.get(self.sched.slot_req_id(slot))
+        if req is not None and req.first_token_at is None:
+            req.first_token_at = time.perf_counter()
 
     def _prefill_batch(self, admitted: List[tuple],
                        defer: bool = False) -> List[tuple]:
@@ -281,6 +208,7 @@ class InferenceEngine:
                 continue
             toks = np.asarray(jax.device_get(dev_toks), np.int32)
             for i, (slot, _prompt) in enumerate(group):
+                self._first_token(slot)
                 self.sched.commit_prefill(slot, int(toks[i]))
         return groups
 
@@ -317,22 +245,7 @@ class InferenceEngine:
                 k = max(1, self.sched.plan_multi_step(
                     self.steps_per_dispatch))
                 k = 1 << (k.bit_length() - 1)  # pow2: bounded jit variants
-            if self.decode_stack == "mega":
-                self.rng, sub = jax.random.split(self.rng)
-                toks, _cur, self.k_pool, self.v_pool = _decode_mega_steps(
-                    self.params, self._lm_w, jnp.asarray(self.sched.cur),
-                    self.k_pool, self.v_pool,
-                    jnp.asarray(self.sched.tables),
-                    jnp.asarray(self.sched.ctx), sub, spec=self.spec,
-                    k=k, method=self.method, kv_combined=self.kv_combined,
-                    interpret=self.interpret, lm_vmajor=self._lm_vmajor,
-                    lm_V=self._lm_V, lm_Vc=self._lm_Vc)
-                toks = np.asarray(jax.device_get(toks), np.int32)
-                if k > 1:
-                    self.sched.commit_tokens_multi(toks)
-                else:
-                    self.sched.commit_tokens(toks[0])
-            elif k > 1:
+            if k > 1:
                 self.rng, sub = jax.random.split(self.rng)
                 toks, _cur, self.k_pool, self.v_pool = _decode_multi_steps(
                     self.params, jnp.asarray(self.sched.cur),
@@ -371,25 +284,17 @@ class InferenceEngine:
             ctx = ctx + np.int32(ctx_off)
         ctx = jnp.asarray(ctx)
         self.rng, sub = jax.random.split(self.rng)
-        if self.decode_stack == "mega":
-            toks, cur, self.k_pool, self.v_pool = _decode_mega_steps(
-                self.params, self._lm_w, cur_dev, self.k_pool, self.v_pool,
-                tables, ctx, sub, spec=self.spec, k=k, method=self.method,
-                kv_combined=self.kv_combined, interpret=self.interpret,
-                lm_vmajor=self._lm_vmajor, lm_V=self._lm_V, lm_Vc=self._lm_Vc)
-        else:
-            toks, cur, self.k_pool, self.v_pool = _decode_multi_steps(
-                self.params, cur_dev, self.k_pool, self.v_pool,
-                tables, ctx, sub, spec=self.spec, impl=self.impl, k=k,
-                method=self.method)
+        toks, cur, self.k_pool, self.v_pool = _decode_multi_steps(
+            self.params, cur_dev, self.k_pool, self.v_pool,
+            tables, ctx, sub, spec=self.spec, impl=self.impl, k=k,
+            method=self.method)
         return toks, cur
 
     def _run_pipelined(self) -> None:
         """Drive all submitted requests to completion with ASYNC multi-step
         scheduling: chunk N+1 is planned (``plan_multi_step(reserve=k_N)``)
         and dispatched from chunk N's DEVICE-RESIDENT token carry before
-        chunk N's tokens ever reach the host, so the host round trip — the
-        entire per-dispatch latency on a remote/relay TPU backend — hides
+        chunk N's tokens ever reach the host, so the host round trip hides
         under device compute. Bookkeeping commits lag one chunk (EOS /
         length overshoot is trimmed at commit exactly as in the sync
         path); admission and prefill are sync points, so slot membership
@@ -418,6 +323,7 @@ class InferenceEngine:
             for slots, dev_toks in deferred:
                 vals = np.asarray(jax.device_get(dev_toks), np.int32)
                 for i, slot in enumerate(slots):
+                    self._first_token(slot)
                     self.sched.resolve_prefill(slot, int(vals[i]))
             deferred.clear()
             self._drain_finished()
@@ -486,16 +392,22 @@ class InferenceEngine:
         resolve_prefills()
         flush()
 
-    def run(self, prompts: Sequence[Sequence[int]], max_new_tokens: int = 32,
+    def run(self, prompts: Sequence[Sequence[int]],
+            max_new_tokens: Union[int, Sequence[int]] = 32,
             eos_token: Optional[int] = None,
             pipeline="auto") -> List[List[int]]:
         """Submit all prompts, run until completion, return outputs in order.
+
+        ``max_new_tokens`` is one budget for all prompts or one per prompt.
 
         ``pipeline``: True/"auto" uses the async one-chunk-lookahead loop
         (_run_pipelined) when multi-step scheduling is on — decode chunks
         dispatch back-to-back with no host round trip between them. False
         forces the synchronous step() loop."""
-        ids = [self.submit(p, max_new_tokens, eos_token) for p in prompts]
+        if isinstance(max_new_tokens, int):
+            max_new_tokens = [max_new_tokens] * len(prompts)
+        ids = [self.submit(p, n, eos_token)
+               for p, n in zip(prompts, max_new_tokens)]
         use_pipe = pipeline is True or (
             pipeline == "auto" and self.steps_per_dispatch > 1
             and hasattr(self.sched, "plan_multi_step"))

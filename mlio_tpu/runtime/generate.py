@@ -1,10 +1,9 @@
 """Autoregressive generation: prefill + fully-jitted decode loop.
 
 Rebuild of the reference's generation path (verify_baseline.py:247-304 greedy
-smoke test; TransformerInferenceRunner decode, baseline/inference.py:1306+)
-in the TPU idiom: the whole decode loop is one ``lax.scan`` inside jit — no
-per-token Python dispatch, no host↔device sync until the final tokens come
-back.
+smoke test; TransformerInferenceRunner decode, baseline/inference.py:1306+):
+the whole decode loop is one ``lax.scan`` inside jit — no per-token Python
+dispatch, no host↔device sync until the final tokens come back.
 """
 from __future__ import annotations
 
@@ -45,186 +44,12 @@ def _generate_impl(
     logits, cache = forward(params, spec, input_ids, impl=impl, cache=cache)
     next_token = sampling.sample(logits[:, -1, :], rng, method)  # [B]
 
-    # Decode-megakernel carry: flatten the cache ONCE at the prefill/decode
-    # boundary. The flat [L, B, Smax, Hkv*D] and 5D layouts are physically
-    # different TPU tilings; reshaping inside the step would relayout-copy
-    # the whole cache every token (ops/decode_layer.py).
-    from mlio_tpu.ops.decode_layer import supports_decode_stack
-    from mlio_tpu.ops.decode_tiled import supports_decode_tiled
-
-    quantized = cache_quant not in (None, "none")
-    use_mega = (impl.decode_stack == "mega"
-                or (impl.decode_stack == "auto"
-                    and supports_decode_stack(
-                        spec, cache_quant=quantized,
-                        blocks=params["blocks"], smax=cache_len)))
-    use_tiled = (not use_mega
-                 and (impl.decode_stack == "tiled"
-                      or (impl.decode_stack == "auto"
-                          and supports_decode_tiled(
-                              spec, B, cache_quant=quantized,
-                              blocks=params["blocks"], smax=cache_len))))
-    if (use_mega or use_tiled) and impl.attention != "dense":
-        cache = dict(cache)
-        cache["k"] = cache["k"].reshape(*cache["k"].shape[:3], -1)
-        cache["v"] = cache["v"].reshape(*cache["v"].shape[:3], -1)
-        if "k_scale" in cache and use_mega:
-            # mega wants head-major padded scales
-            from mlio_tpu.ops.decode_layer import pad_scales_for_mega
-
-            cache["k_scale"] = pad_scales_for_mega(cache["k_scale"],
-                                                   spec.num_kv_heads)
-            cache["v_scale"] = pad_scales_for_mega(cache["v_scale"],
-                                                   spec.num_kv_heads)
-        elif "k_scale" in cache:
-            # tiled wants group-major padded scales
-            from mlio_tpu.ops.decode_tiled import (
-                _weight_fmt,
-                _weight_itemsize,
-                pad_scales_for_tiled,
-                resolve_tiling,
-            )
-
-            tiling = resolve_tiling(
-                spec, B, _weight_itemsize(params["blocks"]) or 2,
-                1 if quantized else 2,
-                weight_fmt=_weight_fmt(params["blocks"]),
-                cache_len=cache_len, quant=quantized)
-            cache["k_scale"] = pad_scales_for_tiled(
-                cache["k_scale"], spec.num_kv_heads, tiling.ka)
-            cache["v_scale"] = pad_scales_for_tiled(
-                cache["v_scale"], spec.num_kv_heads, tiling.ka)
-
-    # Fused greedy epilogue (mega path only): final norm + lm_head + argmax
-    # run INSIDE the megakernel as extra grid steps — the step body becomes
-    # embedding-gather + one pallas_call + one cache write (ops/decode_layer
-    # epilogue; VERDICT r1 #1: the decode step was op-launch-bound).
-    fuse_head = (use_mega and method.temperature == 0.0
-                 and impl.attention != "dense")
-    if fuse_head:
-        from mlio_tpu.ops.decode_layer import decode_vmem_bytes, _VMEM_LIMIT
-        from mlio_tpu.ops.decode_layer import _weight_itemsize as _witem
-
-        lm_w = (params["lm_head"] if params["lm_head"] is not None
-                else params["tok_embed"])
-        lm_vmajor = params["lm_head"] is None
-        fuse_head = decode_vmem_bytes(
-            spec, B, 128, _witem(params["blocks"]) or 2,
-            cache_itemsize=1 if quantized else 2,
-            lm_chunk=4096) < (_VMEM_LIMIT - (12 << 20))
-
-    if fuse_head:
-        from mlio_tpu.models.transformer import rope_cos_sin
-        from mlio_tpu.ops.decode_layer import (
-            decode_layer_stack,
-            pad_lm_head_for_mega,
-        )
-
-        interp = (impl.interpret if impl.interpret is not None
-                  else jax.default_backend() != "tpu")
-        # tuned decode knobs (offline: mlio_tpu.ops.autotune.tune_decode)
-        from mlio_tpu.ops.autotune import lookup_key, mega_decode_key
-
-        tuned = lookup_key(mega_decode_key(
-            spec.hidden_size, spec.kv_dim, B, cache_len, quantized)) or {}
-        cache_block = tuned.get("cache_block")
-        # pad ONCE at the boundary (an O(V*H) copy must not ride the scan)
-        lm_w, lm_V, lm_Vc = pad_lm_head_for_mega(
-            lm_w, lm_vmajor, tuned.get("vocab_chunk", 4096))
-        # bf16 cache: pack k|v on lanes of ONE buffer (one DMA per scan
-        # block in-kernel, one cache-update op per step outside). The
-        # in-kernel lane split at KVd needs 128-lane alignment (Mosaic
-        # cannot slice mid-tile), so small-KVd models keep split caches.
-        kv_combined = (not quantized) and spec.kv_dim % 128 == 0
-        if kv_combined:
-            cache = dict(cache)
-            cache["kv"] = jnp.concatenate([cache.pop("k"), cache.pop("v")],
-                                          axis=-1)
-
-        pe_ok = (spec.positional != "learned"
-                 or params["pos_embed"].shape[0] % 8 == 0)
-        # Multi-step in-kernel: the WHOLE greedy decode loop as ONE
-        # pallas_call with grid (T, layers + lm chunks) — no per-step
-        # dispatch, no pipeline ramp (step s+1's layer-0 weights prefetch
-        # during step s's lm epilogue), no XLA embedding gather (the
-        # epilogue captures the winning token's embedding row from the
-        # tied lm_head chunks as they stream by).
-        multi_ok = kv_combined and lm_vmajor and pe_ok
-        if multi_ok and max_new_tokens > 1:
-            from mlio_tpu.models.transformer import rope_cos_sin
-            from mlio_tpu.ops.decode_layer import decode_layer_stack
-
-            T = max_new_tokens - 1
-            pos0 = cache["pos"]
-            x = params["tok_embed"][next_token]
-            if spec.embed_scale is not None:
-                x = x * jnp.asarray(spec.embed_scale, x.dtype)
-            if spec.positional == "learned":
-                cs = sn = None
-            else:
-                cs, sn = rope_cos_sin(pos0 + jnp.arange(T), spec.rope_dim,
-                                      spec.rope_theta, jnp.float32)
-            out = decode_layer_stack(
-                x, params["blocks"], cache["kv"], None, pos0, cs, sn,
-                spec=spec, interpret=interp,
-                head_norm=(params["final_scale"], params["final_bias"]),
-                lm_head=lm_w, lm_head_bias=params.get("lm_head_bias"),
-                lm_vmajor=True, vocab_chunk=lm_Vc, vocab_size=lm_V,
-                cache_block=cache_block, kv_combined=True,
-                kv_depth=tuned.get("kv_depth"),
-                pos_embed=(params["pos_embed"]
-                           if spec.positional == "learned" else None),
-                steps=T)
-            toks = out[-1][:, :, 0]                            # [T, B]
-            all_new = jnp.concatenate([next_token[None], toks], axis=0)
-            return jnp.concatenate(
-                [input_ids, all_new.T.astype(input_ids.dtype)], axis=1)
-
-        def step(carry, rng_step):
-            cache, token = carry
-            pos = cache["pos"]
-            x = params["tok_embed"][token]  # [B, H]
-            if spec.embed_scale is not None:
-                x = x * jnp.asarray(spec.embed_scale, x.dtype)
-            pe_in_kernel = (spec.positional == "learned"
-                            and params["pos_embed"].shape[0] % 8 == 0)
-            if spec.positional == "learned":
-                cs = sn = None
-                if not pe_in_kernel:  # odd-length table: XLA add fallback
-                    x = x + params["pos_embed"][pos].astype(x.dtype)
-            else:
-                cs, sn = rope_cos_sin(jnp.reshape(pos, (1,)), spec.rope_dim,
-                                      spec.rope_theta, jnp.float32)
-            out = decode_layer_stack(
-                x, params["blocks"],
-                cache["kv"] if kv_combined else cache["k"],
-                None if kv_combined else cache["v"], pos, cs, sn,
-                spec=spec,
-                k_scales=cache.get("k_scale"),
-                v_scales=cache.get("v_scale"),
-                interpret=interp,
-                head_norm=(params["final_scale"], params["final_bias"]),
-                lm_head=lm_w, lm_head_bias=params.get("lm_head_bias"),
-                lm_vmajor=lm_vmajor, vocab_chunk=lm_Vc, vocab_size=lm_V,
-                cache_block=cache_block, kv_combined=kv_combined,
-                kv_depth=tuned.get("kv_depth"),
-                pos_embed=params["pos_embed"] if pe_in_kernel else None)
-            if kv_combined:
-                new_cache = {"kv": out[1], "pos": pos + 1}
-            else:
-                new_cache = {"k": out[1], "v": out[2], "pos": pos + 1}
-                if "k_scale" in cache:
-                    new_cache["k_scale"] = out[3]
-                    new_cache["v_scale"] = out[4]
-            new_token = out[-1][:, 0]
-            return (new_cache, new_token), token
-    else:
-        def step(carry, rng_step):
-            cache, token = carry
-            logits, cache = forward(params, spec, token[:, None], impl=impl,
-                                    cache=cache)
-            new_token = sampling.sample(logits[:, -1, :], rng_step, method)
-            return (cache, new_token), token
+    def step(carry, rng_step):
+        cache, token = carry
+        logits, cache = forward(params, spec, token[:, None], impl=impl,
+                                cache=cache)
+        new_token = sampling.sample(logits[:, -1, :], rng_step, method)
+        return (cache, new_token), token
 
     rngs = jax.random.split(rng, max_new_tokens)
     (cache, last_token), tokens = jax.lax.scan(

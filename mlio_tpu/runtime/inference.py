@@ -21,7 +21,7 @@ import numpy as np
 
 from mlio_tpu.models.spec import ModelSpec
 from mlio_tpu.models.transformer import Impl, forward
-from mlio_tpu.utils.tpu_utils import get_device_memory_usage
+from mlio_tpu.utils.device_utils import get_device_memory_usage
 
 
 class InferenceRunner:
@@ -46,14 +46,12 @@ class InferenceRunner:
         self.kv_quant = kv_quant
         self.use_paged_attention = use_paged_attention
         self.warmup_iters = warmup_iters
-        self.impl = impl if impl is not None else (
-            Impl(attention="flash", mlp="fused", norm="fused")
-            if jax.default_backend() == "tpu" else Impl())
+        self.impl = impl if impl is not None else Impl()
 
         # precision management (parity: inference.py:406-557)
         if precision == "fp32":
             params = convert_precision(params, jnp.float32)
-        elif precision in ("bf16", "fp16"):  # fp16 maps to bf16 on TPU
+        elif precision in ("bf16", "fp16"):  # fp16 maps to bf16
             params = convert_precision(params, jnp.bfloat16)
         elif precision in ("int8", "int4", "fp8"):
             params = convert_precision(params, jnp.bfloat16)
@@ -187,15 +185,11 @@ def benchmark_optimization_impact(
         configs = {
             "baseline": {"impl": Impl()},
             "flash_attention": {"impl": Impl(attention="flash")},
-            "fused_mlp": {"impl": Impl(mlp="fused")},
-            "flash+fusion": {"impl": Impl(attention="flash", mlp="fused",
-                                          norm="fused")},
             "int8_weights": {"impl": Impl(attention="flash"),
                              "precision": "int8"},
             "int8_kv_cache": {"impl": Impl(attention="flash"),
                               "kv_quant": "int8"},
-            "all": {"impl": Impl(attention="flash", mlp="fused",
-                                 norm="fused"),
+            "all": {"impl": Impl(attention="flash"),
                     "precision": "int8", "kv_quant": "int8"},
         }
     results = {}

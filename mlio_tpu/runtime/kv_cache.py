@@ -2,7 +2,7 @@
 
 Rebuild of the reference's cache stack (/root/reference/baseline/
 inference.py:791-1302: KVCache, BlockManager, SequenceMetadata,
-PagedKVCache). The central TPU-native design change (SURVEY.md §7 "hard
+PagedKVCache). The central design change (SURVEY.md §7 "hard
 parts"): the reference keeps dynamic Python lists of blocks; under XLA every
 shape must be static, so caches here are fixed-capacity device arrays and
 all variable-length state is expressed with integer tables + masks. Host-side
@@ -35,11 +35,11 @@ def init_cache(
     """Allocate a contiguous cache pytree.
 
     Layout [L, B, S_max, H_kv, D] — layer-major so lax.scan over layers peels
-    the leading axis, head_dim last for TPU lane alignment.
+    the leading axis, head_dim last (contiguous per head).
 
     ``quant="int8"`` allocates int8 K/V plus per-(token, head) fp32 scales
-    [L, B, S_max, H_kv]; the flash kernel dequantizes in its inner loop
-    (the INT8 KV-cache capability, BASELINE.md).
+    [L, B, S_max, H_kv]; the paged decode kernel dequantizes in its inner
+    loop (the INT8 KV-cache capability, BASELINE.md).
     """
     S = max_seq_len or spec.max_seq_len
     shape = (spec.num_layers, batch_size, S, spec.num_kv_heads, spec.head_size)

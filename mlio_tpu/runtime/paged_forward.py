@@ -1,10 +1,10 @@
 """Model forward passes over the paged KV cache.
 
 The serving-critical path (SURVEY.md §3.2): prefill computes each layer's
-K/V, writes them into the paged pools via reshape_and_cache AND attends with
-the flash kernel; decode reads non-contiguous context through the
-paged-attention kernel. Layer iteration is a lax.scan carrying the pools
-(pool layer dim indexed by the traced layer id) — the TPU equivalent of the
+K/V, writes them into the paged pools via reshape_and_cache and attends over
+the fresh K/V (ops.attention); decode reads non-contiguous context through
+ops.paged_attention. Layer iteration is a lax.scan carrying the pools (pool
+layer dim indexed by the traced layer id) — the equivalent of the
 reference's per-layer monkeypatched forward
 (/root/reference/baseline/model_utils.py:600-759
 add_paged_attention_to_model).
@@ -19,18 +19,20 @@ import jax.numpy as jnp
 
 from mlio_tpu import ops
 from mlio_tpu.models.spec import ModelSpec
-from mlio_tpu.models.transformer import (Impl, apply_rope, rope_cos_sin,
-                                          _split_heads, _qkv_proj, _run_mlp)
-from mlio_tpu.ops.paged_attention import (paged_attention, reshape_and_cache,
-                                          reshape_and_cache_flat)
+from mlio_tpu.models.transformer import (Impl, apply_rope, lm_logits,
+                                          rope_cos_sin, _residual_tail,
+                                          _split_heads, _qkv_proj)
+from mlio_tpu.ops.paged_attention import reshape_and_cache
 
 
 def _embed(params, spec, ids, positions):
     x = params["tok_embed"][ids]
+    if spec.embed_scale is not None:
+        x = x * jnp.asarray(spec.embed_scale, x.dtype)
     if spec.positional == "learned":
         x = x + params["pos_embed"][positions].astype(x.dtype)
         return x, (None, None)
-    cos, sin = rope_cos_sin(positions, spec.head_size, spec.rope_theta)
+    cos, sin = rope_cos_sin(positions, spec.rope_dim, spec.rope_theta)
     return x, (cos, sin)
 
 
@@ -51,52 +53,30 @@ def prefill_paged(
     """Prefill: write K/V for all S positions, return last-valid-token logits.
 
     Returns (logits [B, V], k_pool, v_pool).
-
-    Flat pools (ndim == 4, the paged-megakernel layout of
-    ops/decode_paged_stack.py) are written through reshape_and_cache_flat;
-    ``v_pool=None`` means k|v are combined on the lanes of ``k_pool``.
     """
     B, S = ids.shape
-    flat = k_pool.ndim == 4
     positions = write_pos[:, None] + jnp.arange(S)[None, :]
     x, (cos, sin) = _embed(params, spec, ids, positions)
-    dtype = x.dtype
 
     def block_fn(carry, inputs):
         x, k_pool, v_pool = carry
         bp, layer = inputs
         h = ops.norm(x, bp["ln1_scale"], bp["ln1_bias"], kind=spec.norm,
                      eps=spec.norm_eps, impl=impl)
-        qf, kf, vf = _qkv_proj(h, x, bp, spec, impl)
+        qf, kf, vf = _qkv_proj(h, bp, spec, impl)
         q = _split_heads(qf, spec.num_heads)
         k = _split_heads(kf, spec.num_kv_heads)
         v = _split_heads(vf, spec.num_kv_heads)
         if cos is not None:
             q = apply_rope(q, cos, sin)
             k = apply_rope(k, cos, sin)
-        if flat:
-            kfl = k.reshape(B, S, -1)
-            vfl = v.reshape(B, S, -1)
-            if v_pool is None:  # combined k|v lanes
-                k_pool = reshape_and_cache_flat(
-                    k_pool, jnp.concatenate([kfl, vfl], axis=-1),
-                    block_tables, write_pos, layer)
-            else:
-                k_pool = reshape_and_cache_flat(k_pool, kfl, block_tables,
-                                                write_pos, layer)
-                v_pool = reshape_and_cache_flat(v_pool, vfl, block_tables,
-                                                write_pos, layer)
-        else:
-            k_pool, v_pool = reshape_and_cache(k_pool, v_pool, k, v,
-                                               block_tables, write_pos,
-                                               layer)
+        k_pool, v_pool = reshape_and_cache(k_pool, v_pool, k, v,
+                                           block_tables, write_pos, layer)
         attn = ops.attention(q, k, v, causal=True, q_offset=0,
                              kv_len=seq_lens, impl=impl)
-        x = x + ops.linear(attn.reshape(B, S, spec.q_dim), bp["wo"], bp["bo"],
-                           impl=impl)
-        h = ops.norm(x, bp["ln2_scale"], bp["ln2_bias"], kind=spec.norm,
-                     eps=spec.norm_eps, impl=impl)
-        x = x + _run_mlp(h, bp, spec, impl)
+        attn_out = ops.linear(attn.reshape(B, S, spec.q_dim), bp["wo"],
+                              bp["bo"], impl=impl)
+        x = _residual_tail(x, attn_out, h, bp, spec, impl)
         return (x, k_pool, v_pool), None
 
     (x, k_pool, v_pool), _ = jax.lax.scan(
@@ -109,11 +89,7 @@ def prefill_paged(
     last = jnp.clip(seq_lens - 1, 0, S - 1)
     x_last = jnp.take_along_axis(x, last[:, None, None].astype(jnp.int32)
                                  .repeat(x.shape[-1], -1), axis=1)[:, 0]
-    if params["lm_head"] is not None:
-        logits = ops.linear(x_last, params["lm_head"], impl=impl)
-    else:
-        logits = x_last @ params["tok_embed"].T.astype(dtype)
-    return logits, k_pool, v_pool
+    return lm_logits(params, spec, x_last, impl), k_pool, v_pool
 
 
 @functools.partial(jax.jit, static_argnames=("spec", "impl"),
@@ -133,7 +109,6 @@ def decode_paged(
     B = tokens.shape[0]
     positions = context_lens - 1  # [B]
     x, (cos, sin) = _embed(params, spec, tokens[:, None], positions[:, None])
-    dtype = x.dtype
     # Inactive slots are handled by the engine: their table rows point at a
     # reserved scratch block (id 0) and ctx stays 1, so their writes land in
     # the scratch block and never corrupt live sequences.
@@ -143,7 +118,7 @@ def decode_paged(
         bp, layer = inputs
         h = ops.norm(x, bp["ln1_scale"], bp["ln1_bias"], kind=spec.norm,
                      eps=spec.norm_eps, impl=impl)
-        qf, kf, vf = _qkv_proj(h, x, bp, spec, impl)
+        qf, kf, vf = _qkv_proj(h, bp, spec, impl)
         q = _split_heads(qf, spec.num_heads)
         k = _split_heads(kf, spec.num_kv_heads)
         v = _split_heads(vf, spec.num_kv_heads)
@@ -152,16 +127,12 @@ def decode_paged(
             k = apply_rope(k, cos, sin)
         k_pool, v_pool = reshape_and_cache(k_pool, v_pool, k, v,
                                            block_tables, positions, layer)
-        attn = paged_attention(q[:, 0], k_pool, v_pool, block_tables,
-                               context_lens, layer=layer,
-                               interpret=bool(impl.interpret)
-                               if impl.interpret is not None
-                               else jax.default_backend() != "tpu")
-        x = x + ops.linear(attn.reshape(B, 1, spec.q_dim), bp["wo"], bp["bo"],
-                           impl=impl)
-        h = ops.norm(x, bp["ln2_scale"], bp["ln2_bias"], kind=spec.norm,
-                     eps=spec.norm_eps, impl=impl)
-        x = x + _run_mlp(h, bp, spec, impl)
+        attn = ops.paged_decode_attention(q[:, 0], k_pool, v_pool,
+                                          block_tables, context_lens,
+                                          layer=layer, impl=impl)
+        attn_out = ops.linear(attn.reshape(B, 1, spec.q_dim).astype(x.dtype),
+                              bp["wo"], bp["bo"], impl=impl)
+        x = _residual_tail(x, attn_out, h, bp, spec, impl)
         return (x, k_pool, v_pool), None
 
     (x, k_pool, v_pool), _ = jax.lax.scan(
@@ -170,8 +141,4 @@ def decode_paged(
 
     x = ops.norm(x, params["final_scale"], params["final_bias"],
                  kind=spec.norm, eps=spec.norm_eps, impl=impl)[:, 0]
-    if params["lm_head"] is not None:
-        logits = ops.linear(x, params["lm_head"], impl=impl)
-    else:
-        logits = x @ params["tok_embed"].T.astype(dtype)
-    return logits, k_pool, v_pool
+    return lm_logits(params, spec, x, impl), k_pool, v_pool

@@ -96,12 +96,9 @@ def fuse_projections(params: Dict[str, Any], spec: ModelSpec) -> Dict[str, Any]:
     """Fuse per-layer projections: wq|wk|wv -> wqkv and w_up|w_gate ->
     w_upgate (one matmul each; outputs split on lanes in the forward).
 
-    Decode on deep scan-path models is op-launch-bound (~10-15us fixed cost
-    per GEMV-shaped op); fusing drops 3 launches per layer. Works on plain
-    arrays and on QTensor (per-output-channel scales concatenate). The
-    fused layout disables the decode megakernel (it streams separate
-    weights), so use this for models too large for the megakernel's VMEM
-    gate — exactly where the op-launch overhead bites."""
+    Fusing drops 3 kernel launches per layer on the decode path, where
+    GEMV-shaped ops carry a fixed launch cost. Works on plain arrays and on
+    QTensor (per-output-channel scales concatenate)."""
     out = dict(params)
     blocks = dict(params["blocks"])
     blocks["wqkv"] = _concat_weights(
@@ -120,15 +117,10 @@ def fuse_projections(params: Dict[str, Any], spec: ModelSpec) -> Dict[str, Any]:
 
 
 def transcode_fp8_to_int8(params: Dict[str, Any]) -> Dict[str, Any]:
-    """Re-quantize every fp8 QTensor leaf to per-output-channel INT8 — the
-    recommended SERVING execution for fp8 checkpoints on TPUs without fp8
-    ALUs (v5e/v5p): identical bytes/element over HBM, but dequant becomes
-    the hardware int->float convert that fuses into every matmul, vs a
-    software bit-expansion for e4m3 (~2x step-time difference at 70B
-    shapes, exp_fp8.py). Accuracy: measured per-channel-int8 ppl delta is
-    BELOW e4m3's on both gate legs (BENCH_extra ppl-gate detail), so the
-    transcode is accuracy-neutral-or-better; the fp8 master remains the
-    checkpoint format.
+    """Re-quantize every fp8 QTensor leaf to per-output-channel INT8:
+    identical bytes/element in device memory, with the dequant a plain
+    int->float convert that fuses into every matmul. The fp8 master
+    remains the checkpoint format.
     """
     from mlio_tpu.ops.quant import QTensor, dequantize
 
@@ -305,7 +297,7 @@ def calibrate_activation_scales(
         def block_fn(x, bp):
             h1 = ops.norm(x, bp["ln1_scale"], bp["ln1_bias"], kind=spec.norm,
                           eps=spec.norm_eps, impl=impl)
-            q, k, v = _qkv_proj(h1, x, bp, spec, impl)
+            q, k, v = _qkv_proj(h1, bp, spec, impl)
             q = _split_heads(q, spec.num_heads)
             k = _split_heads(k, spec.num_kv_heads)
             v = _split_heads(v, spec.num_kv_heads)
@@ -321,14 +313,10 @@ def calibrate_activation_scales(
             # w_down's input: recompute the pre-down activation explicitly
             u = ops.linear(h2, bp["w_up"], bp["b_up"], impl=impl)
             if bp.get("w_gate") is not None:
-                from mlio_tpu.ops.fused_mlp import _activate
-
                 g = ops.linear(h2, bp["w_gate"], bp["b_gate"], impl=impl)
-                act = _activate(u, g, spec.activation)
+                act = ops.activate(u, g, spec.activation)
             else:
-                from mlio_tpu.ops.fused_mlp import _activate
-
-                act = _activate(u, None, spec.activation)
+                act = ops.activate(u, None, spec.activation)
             down = ops.linear(act.astype(x.dtype), bp["w_down"], bp["b_down"],
                               impl=impl)
             x = x + down
@@ -366,7 +354,7 @@ def apply_activation_scales(
 
     Each projection QTensor gets ``act_scale = site_amax / 127 * margin``
     ([num_layers], sliced per layer by the stack scan); ops.linear then
-    routes through the int8 x int8 MXU path (ops.quant.w8a8_matmul).
+    routes through the int8 x int8 path (ops.quant.w8a8_matmul).
     """
     out = dict(params)
     blocks = dict(params["blocks"])

@@ -7,7 +7,7 @@ effective decode throughput by verifying several drafted tokens with ONE
 target-model forward — decode is HBM-bound (every step re-reads all
 weights), so scoring gamma+1 tokens per weight-read is nearly free.
 
-TPU-native design constraints drive the structure:
+Compiler-friendly design constraints drive the structure:
 
 * **Static shapes everywhere.** Every speculation round drafts exactly
   ``gamma`` tokens and scores ``gamma + 1`` positions; acceptance length is
@@ -38,13 +38,11 @@ with prob min(1, p(x)/q(x)) and resample rejections from max(p - q, 0).
 Either way the committed stream is EXACTLY what the target model alone
 would produce (greedy) / an exact sample from it (stochastic).
 
-Measured on one v5e chip (Llama-7B-class INT8, B=1, gamma=7): a verify
-round costs 1.27x a single decode step while scoring 8 positions, so
-end-to-end speedup = (tokens accepted per round) / 1.27 — e.g. ~2.4x at
-3 tok/round, the typical n-gram acceptance on extraction/code workloads.
-Random-weight models in this offline environment accept ~1-2 tok/round
-(their greedy continuation carries no n-gram signal), so the tests assert
-EXACTNESS and round-count bookkeeping, not wall-clock gain.
+End-to-end speedup = (tokens accepted per round) / (verify-round cost in
+decode steps); on the H100 the verify round's cost is not measured yet.
+Random-weight models accept ~1-2 tok/round (their greedy continuation
+carries no n-gram signal), so the tests assert EXACTNESS and round-count
+bookkeeping, not wall-clock gain.
 """
 from __future__ import annotations
 

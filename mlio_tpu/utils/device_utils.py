@@ -1,4 +1,4 @@
-"""TPU device utilities.
+"""Device utilities.
 
 Rebuild of /root/reference/utils/gpu_utils.py:9-186 (get_gpu_memory_usage,
 clear_gpu_memory, calculate_memory_needed, gpu_info_string,
@@ -87,3 +87,21 @@ def is_enough_device_memory(required_bytes: int,
         return True
     free = limit - mem["bytes_in_use"]
     return free >= required_bytes * safety_factor
+
+
+def enable_compile_cache() -> str:
+    """Turn on JAX's persistent compilation cache; returns its directory.
+
+    ``JAX_COMPILATION_CACHE_DIR``, when set, is left alone (JAX reads it
+    itself) and no other directory is set in code. Otherwise the cache goes
+    to ``<repo root>/.jax_cache``: a fixed path, because the path is part of
+    the cache's key and a directory that moves never hits."""
+    import os
+    from pathlib import Path
+
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
+    path = str(Path(__file__).resolve().parents[2] / ".jax_cache")
+    jax.config.update("jax_compilation_cache_dir", path)
+    return path

@@ -12,16 +12,16 @@ import main as cli
 
 def test_summary(capsys, tmp_path):
     rc = cli.main(["--model", "gpt2-tiny", "--dtype", "fp32", "--summary",
-                   "--kernels", "dense", "--output-dir", str(tmp_path)])
+                   "--attention", "dense", "--output-dir", str(tmp_path)])
     assert rc == 0
     out = capsys.readouterr().out
     assert "gpt2-tiny" in out and "params" in out
-    assert (tmp_path / "used_config.yaml").exists()
+    assert (tmp_path / "used_config.json").exists()
 
 
 def test_generate(capsys, tmp_path):
     rc = cli.main(["--model", "llama-tiny", "--dtype", "fp32",
-                   "--kernels", "dense", "--generate", "1 2 3",
+                   "--attention", "dense", "--generate", "1 2 3",
                    "--max-new-tokens", "4", "--output-dir", str(tmp_path)])
     assert rc == 0
     assert "generated:" in capsys.readouterr().out
@@ -29,7 +29,7 @@ def test_generate(capsys, tmp_path):
 
 def test_generate_quantized(capsys, tmp_path):
     rc = cli.main(["--model", "llama-tiny", "--dtype", "fp32",
-                   "--kernels", "dense", "--quantize", "int8",
+                   "--attention", "dense", "--quantize", "int8",
                    "--kv-quant", "int8", "--generate", "1 2 3",
                    "--max-new-tokens", "2", "--output-dir", str(tmp_path)])
     assert rc == 0
@@ -37,7 +37,7 @@ def test_generate_quantized(capsys, tmp_path):
 
 def test_profile_and_benchmark(capsys, tmp_path):
     rc = cli.main(["--model", "gpt2-tiny", "--dtype", "fp32",
-                   "--kernels", "dense", "--profile", "--benchmark",
+                   "--attention", "dense", "--profile", "--benchmark",
                    "--batch-sizes", "1", "--seq-lens", "16",
                    "--output-dir", str(tmp_path)])
     assert rc == 0
@@ -54,7 +54,7 @@ def test_cli_tensor_parallel_generate(capsys, tmp_path):
     """--tensor-parallel runs the sharded forward on the CPU mesh
     (VERDICT r1 weak #4: the flags must drive a real parallel plan)."""
     rc = cli.main(["--model", "llama-tiny", "--dtype", "fp32",
-                   "--kernels", "dense", "--tensor-parallel", "2",
+                   "--attention", "dense", "--tensor-parallel", "2",
                    "--data-parallel", "2",
                    "--generate", "1 2 3", "--max-new-tokens", "3",
                    "--output-dir", str(tmp_path)])
@@ -65,7 +65,7 @@ def test_cli_tensor_parallel_generate(capsys, tmp_path):
 
 def test_cli_auto_parallel_prints_plan(capsys, tmp_path):
     rc = cli.main(["--model", "llama-tiny", "--dtype", "fp32",
-                   "--kernels", "dense", "--auto-parallel",
+                   "--attention", "dense", "--auto-parallel",
                    "--generate", "1 2", "--max-new-tokens", "2",
                    "--batch-sizes", "8", "--seq-lens", "128",
                    "--output-dir", str(tmp_path)])

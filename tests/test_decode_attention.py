@@ -1,9 +1,11 @@
-"""Batched contiguous decode attention vs dense reference."""
+"""Decode attention over the contiguous cache (the paged Triton-route
+kernel over a page view of the cache, interpret mode) vs dense reference."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mlio_tpu.ops.decode_attention import decode_attention, choose_decode_tiles
+from mlio_tpu.ops.paged_attention import (contiguous_pages, decode_attention,
+                                          decode_launch)
 from mlio_tpu.ops.reference import attention_reference
 from mlio_tpu.ops.quant import quantize_kv
 
@@ -48,10 +50,18 @@ def test_int8_kv_close_to_fp(rng):
 
 
 def test_tile_chooser_respects_vmem():
-    btile, bs = choose_decode_tiles(B=64, Smax=8192, Hkv=32, D=128)
-    assert 64 % btile == 0 and 8192 % bs == 0
-    # double-buffered K+V (Hkv/D already tile-aligned here) within budget
-    assert 2 * 2 * btile * bs * 32 * 128 * 2 <= 24 << 20
-    # small case: whole batch in one tile, ~8 blocks
-    btile, bs = choose_decode_tiles(B=8, Smax=1024, Hkv=12, D=64)
-    assert btile == 8 and bs == 128
+    """Page view and launch shape: power-of-two pages dividing Smax, loop
+    blocks of >= 16 keys (the tensor-core dot's minimum), splits that cover
+    every block and give B=8 x Hkv=8 about two programs per SM."""
+    assert contiguous_pages(4096) == 64 and contiguous_pages(1152) == 64
+    assert contiguous_pages(20) == 4 and contiguous_pages(21) == 1
+    ppb, splits, per = decode_launch(8, 8, 256, 16)
+    assert ppb * 16 == 64 and per % ppb == 0
+    assert splits * per >= 256 and (splits - 1) * per < 256
+    assert 8 * 8 * splits >= 132
+    # one sequence, tiny context: a single split, never empty
+    ppb, splits, per = decode_launch(1, 1, 2, 16)
+    assert splits == 1 and per >= 2
+    for bs in (1, 4, 16, 64, 128):
+        ppb, _, _ = decode_launch(8, 8, 64, bs)
+        assert ppb * bs >= 16 and (ppb * bs) & (ppb * bs - 1) == 0

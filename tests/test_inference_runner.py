@@ -1,4 +1,4 @@
-"""InferenceRunner facade, A/B harness, diffusion runner, tpu_utils tests
+"""InferenceRunner facade, A/B harness, diffusion runner, device_utils tests
 (parity: baseline/inference.py runner hierarchy + utils/gpu_utils.py)."""
 import numpy as np
 import pytest
@@ -144,8 +144,8 @@ def test_diffusion_unet_denoiser():
     assert np.isfinite(np.asarray(r["output"])).all()
 
 
-def test_tpu_utils():
-    from mlio_tpu.utils.tpu_utils import (
+def test_device_utils():
+    from mlio_tpu.utils.device_utils import (
         calculate_memory_needed,
         clear_device_memory,
         device_info_string,

@@ -1,4 +1,4 @@
-"""INT8 KV-cache tests: quantizers, flash-kernel fused dequant, contiguous
+"""INT8 KV-cache tests: quantizers, the flash path's dequant, contiguous
 cache decode, paged pools (the BASELINE.md INT8-KV capability)."""
 import numpy as np
 import pytest
@@ -6,7 +6,7 @@ import jax
 import jax.numpy as jnp
 
 from mlio_tpu.models import Impl, forward, get_spec, init_params
-from mlio_tpu.ops.flash_attention import flash_attention
+from mlio_tpu.ops import attention
 from mlio_tpu.ops.quant import dequantize_kv, quantize_kv
 from mlio_tpu.ops.reference import attention_reference
 from mlio_tpu.runtime import init_cache
@@ -31,8 +31,9 @@ def test_flash_kernel_int8_kv_matches_dequant_dense():
     kq, ks = quantize_kv(k)
     vq, vs = quantize_kv(v)
 
-    out = flash_attention(q, kq, vq, causal=True, q_offset=0, kv_len=100,
-                          k_scale=ks, v_scale=vs, interpret=True)
+    out = attention(q, kq, vq, causal=True, q_offset=0, kv_len=100,
+                    k_scale=ks, v_scale=vs,
+                    impl=Impl(attention="flash", interpret=True))
     ref = attention_reference(q, dequantize_kv(kq, ks), dequantize_kv(vq, vs),
                               causal=True, kv_len=100)
     # bf16 internal rounding in the kernel's int8 path

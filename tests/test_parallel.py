@@ -96,16 +96,16 @@ def test_orchestrator_estimates(model):
 
 
 def test_auto_config_search():
-    spec = get_spec("llama2-7b")
-    hw = HardwareSpec(chip="v5e", num_chips=8, num_hosts=1)
+    spec = get_spec("llama2-70b")
+    hw = HardwareSpec(kind="NVIDIA H100 80GB HBM3", num_chips=8)
     auto = AutoParallelConfig(spec, hw=hw)
     req = auto.model_requirements(batch=8, seq_len=2048)
-    assert not req["fits_single_chip"]  # 7B bf16 > 16GB HBM
+    assert not req["fits_single_chip"]  # 70B bf16 > 80GB HBM
     plans = auto.search(batch=8, seq_len=2048)
     assert plans and plans[0][1] < float("inf")
     best = auto.best_plan(batch=8, seq_len=2048)
     assert best.world <= 8
-    assert best.tp > 1  # 7B needs sharding to fit
+    assert best.tp > 1  # 70B needs sharding to fit
 
     # cost model sanity: more TP -> less memory per chip
     model = ParallelismCostModel(spec, hw)

@@ -293,7 +293,7 @@ def test_per_op_bound_classifiers_on_table():
     mk = lambda name, fl, by, pct: OpStats(
         name=name, count=1, total_us=100.0, avg_us=100.0, pct=pct,
         line="XLA Ops", flops=fl, bytes_accessed=by)
-    table = OpTable(device="TPU", total_us=300.0, ops=[
+    table = OpTable(device="gpu", total_us=300.0, ops=[
         mk("big_matmul", 1e12, 1e9, 50.0),       # intensity 1000 >> ridge
         mk("cache_copy", 0.0, 1e9, 45.0),        # intensity 0 << ridge
         mk("tiny_op", 1e12, 1e9, 0.2),           # below min_pct cutoff

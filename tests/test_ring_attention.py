@@ -94,21 +94,28 @@ def test_local_strategy_is_block_diagonal():
 
 @pytest.mark.parametrize("causal", [True, False])
 def test_chunked_flash_path_matches_dense(causal):
-    """The Pallas per-chunk fast path (chunk_step_flash merge) == dense,
-    exercised in interpret mode on CPU."""
+    """The flash dispatch (cuDNN's argument mapping, run as XLA's
+    implementation in interpret mode) == dense, with GQA."""
+    from mlio_tpu import ops
+    from mlio_tpu.models import Impl
+
     q, k, v = _qkv(jax.random.PRNGKey(5), 2, 256, 4, 2, 32)
-    out = chunked_ring_attention(q, k, v, causal=causal, chunk_size=64,
-                                 use_flash=True, interpret=True)
+    out = ops.attention(q, k, v, causal=causal,
+                        impl=Impl(attention="flash", interpret=True))
     ref = attention_reference(q, k, v, causal=causal)
     np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
                                rtol=2e-3, atol=2e-3)
 
 
 def test_chunked_flash_path_decode_with_kv_len():
+    """A query placed after cached context (q_offset, kv_len) through the
+    flash dispatch's explicit offset mask."""
+    from mlio_tpu import ops
+    from mlio_tpu.models import Impl
+
     q, k, v = _qkv(jax.random.PRNGKey(6), 2, 128, 4, 4, 32)
-    out = chunked_ring_attention(q[:, :1], k, v, causal=True, q_offset=57,
-                                 kv_len=58, chunk_size=32, use_flash=True,
-                                 interpret=True)
+    out = ops.attention(q[:, :1], k, v, causal=True, q_offset=57, kv_len=58,
+                        impl=Impl(attention="flash", interpret=True))
     ref = attention_reference(q[:, :1], k, v, causal=True, q_offset=57,
                               kv_len=58)
     np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
@@ -116,14 +123,18 @@ def test_chunked_flash_path_decode_with_kv_len():
 
 
 def test_flash_return_stats_lse():
-    """flash_attention(return_stats=True) returns the row log-sum-exp of
-    the scaled scores."""
-    from mlio_tpu.ops.flash_attention import flash_attention
+    """The chunked (m, l) statistics give the row log-sum-exp of the
+    scaled scores: lse = m + log(l)."""
+    from mlio_tpu.ops.ring_attention import chunk_step, init_stats
 
     q, k, v = _qkv(jax.random.PRNGKey(7), 2, 64, 4, 4, 32)
-    out, lse = flash_attention(q, k, v, causal=True, return_stats=True,
-                               interpret=True)
     scale = 32 ** -0.5
+    m, l, acc = init_stats(2, 4, 64, 32)
+    for c in range(0, 64, 16):
+        m, l, acc = chunk_step(q, k[:, c:c + 16], v[:, c:c + 16], m, l, acc,
+                               scale=scale, q_positions=jnp.arange(64),
+                               k_positions=c + jnp.arange(16), causal=True)
+    lse = (m + jnp.log(l))[..., 0]
     s = jnp.einsum("bqhd,bkhd->bhqk", q, k) * scale
     mask = jnp.arange(64)[:, None] >= jnp.arange(64)[None, :]
     s = jnp.where(mask[None, None], s, -jnp.inf)
@@ -134,15 +145,14 @@ def test_flash_return_stats_lse():
 
 @pytest.mark.parametrize("strategy", ["ring", "full", "ulysses"])
 def test_sequence_parallel_flash_path(strategy):
-    """Distributed strategies with the Pallas per-chunk path (interpret
-    mode on the 8-device CPU mesh) == dense."""
+    """Distributed strategies with grouped KV heads on the 8-device CPU
+    mesh == dense."""
     mesh = make_mesh(seq=4)
-    B, S, Hq, Hkv, D = 1, 128, 4, 4, 32
+    B, S, Hq, Hkv, D = 1, 128, 8, 4, 32
     q, k, v = _qkv(jax.random.PRNGKey(8), B, S, Hq, Hkv, D)
     out = sequence_parallel_attention(
         scatter_sequence(q, mesh), scatter_sequence(k, mesh),
-        scatter_sequence(v, mesh), mesh, causal=True, strategy=strategy,
-        use_flash=True, interpret=True)
+        scatter_sequence(v, mesh), mesh, causal=True, strategy=strategy)
     ref = attention_reference(q, k, v, causal=True)
     np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
                                rtol=2e-3, atol=2e-3)

@@ -124,7 +124,7 @@ def test_optimized_decode_path_matches_dense(model):
     the generic dense cached decode."""
     spec, params = model
     ids = jax.random.randint(jax.random.PRNGKey(5), (2, 10), 0, spec.vocab_size)
-    fast = Impl(attention="flash")
+    fast = Impl(attention="flash", interpret=True)
 
     cache_a = init_cache(spec, 2, 32, dtype=jnp.float32)
     cache_b = init_cache(spec, 2, 32, dtype=jnp.float32)

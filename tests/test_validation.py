@@ -3,9 +3,7 @@
 Reference parity: the reference's inline validate_*/benchmark_* functions
 (SURVEY §4 "Kernel-level correctness"): validate_fused_mlp
 mlp_kernels.py:925, compare_with_standard_attention
-flash_attention_kernels.py:1876, compare_with_torch_layernorm
-layernorm_kernels.py:428, compare_with_unfused_implementation
-fused_layernorm_qkv.py:840.
+flash_attention_kernels.py:1876.
 """
 import pytest
 
@@ -17,10 +15,10 @@ def test_validate_all_passes():
     failed = {k: r for k, r in results.items() if not r["passed"]}
     assert not failed, f"kernel gates failed: {failed}"
     # every family must be covered
-    for key in ("flash_attention", "fused_mlp_gelu_new", "fused_mlp_swiglu",
-                "fused_layernorm", "fused_rmsnorm_residual", "fused_ln_qkv",
-                "ring_attention", "paged_attention"):
+    for key in ("flash_attention", "ring_attention", "paged_attention",
+                "decode_attention", "quant_linear_int8", "moe_ragged"):
         assert key in results
+        assert results[key]["reason"]
 
 
 def test_memory_models():
@@ -47,5 +45,5 @@ def test_benchmark_op_returns_marginal():
 @pytest.mark.parametrize("activation", ["relu", "swiglu"])
 def test_benchmark_fused_mlp_smoke(activation):
     r = V.benchmark_fused_mlp(batch=1, seq=64, hidden=128, intermediate=256,
-                              activation=activation, interpret=True)
-    assert r["fused_seconds"] > 0 and r["dense_seconds"] > 0
+                              activation=activation)
+    assert r["bf16_seconds"] > 0 and r["int8_seconds"] > 0
